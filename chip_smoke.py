@@ -6,7 +6,8 @@
 Drives ``repro_torch`` only (never JAX or the ``repro`` package):
 
   1. device    -- the card's name and ``nvidia-smi`` name / power limit;
-  2. build     -- compiles every ``csrc/*.cu`` and the latency probes of
+  2. build     -- compiles every ``csrc/*.cu`` of ``repro_torch.core.accel``
+                  and of ``repro_torch.kernels`` and the latency probes of
                   ``probes/latency.cu`` with nvcc, in parallel;
   3. kernels   -- one L2 and one shared-memory round trip, the units of
                   the replay's latency floor; each kernel against its
@@ -24,10 +25,23 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   per Fig. 15 CiM level set, pricing per Fig. 16 technology:
                   306 design points, each compared (==) with the reference's
                   reports, with the launch counts of every kernel;
-  5. result    -- the kernel table as one JSON line, the nvidia-smi line,
+  5. kernels path: a prefill's launches at published widths -- the CiM
+                  modules of ``repro_torch.kernels`` through ``ops`` only:
+                  the 26 attention layers of a gemma3-1b prefill (B=1,
+                  S=4096; 22 windowed, 4 global) in f32 and again in bf16,
+                  the 6 mLSTM blocks of an xlstm-125m prefill (B=8,
+                  S=2048), every bulk op and the fused add/xor on
+                  4096x8192 int32 and uint32 arrays; counted, then each
+                  kernel held against its plain version (the oracle of
+                  ``repro_torch.kernels.ref``, on CPU copies) at these
+                  widths, at the shapes of tests/test_kernels.py and, for
+                  mLSTM in bf16, at xlstm-125m's width on a short sequence;
+                  then timed beside its plain version, its bound and,
+                  where one exists, a PyTorch library call;
+  6. result    -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
-Any mismatch, a kernel that the main path never launched, or an exception
+Any mismatch, a kernel that its path never launched, or an exception
 ends the run with a non-zero exit code and no ``ok`` line.  Without a CUDA
 device it exits with code 2 before doing anything.  Longer output (the
 compiler's register report, per-workload stage seconds) goes to
@@ -46,6 +60,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PROBES = ROOT / "probes" / "latency.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM, dense tensor cores
 
 
 def fail(msg):
@@ -76,12 +91,337 @@ def host_ms(fn, reps):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bytes_bound_ms(n_bytes, n_ops):
+def bytes_bound_ms(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     """Least time for the work: the larger of bytes over the memory rate
-    and operations over the (fp32 non-tensor) peak rate."""
+    and operations over the peak rate of their type (default: fp32 outside
+    the tensor cores)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# gemma3-1b's attention (src/repro/configs/gemma3_1b.py) and xlstm-125m's
+# mLSTM (src/repro/configs/xlstm_125m.py), at their published widths
+GEMMA = dict(layers=26, heads=4, kv_heads=1, head_dim=256, window=512,
+             global_every=6, batch=1, seq=4096)
+XLSTM = dict(blocks=6, heads=4, head_dim=192, chunk=128, batch=8, seq=2048)
+BULK_SHAPE = (4096, 8192)          # int32: 128 MiB per operand
+BULK_OPS = ("and", "or", "xor", "add", "sub")
+# (atol, rtol) of |kernel - plain| <= atol + rtol * |plain|.  f32: the
+# reference tests' own bounds.  bf16: both sides compute in f32 from the
+# same bf16 inputs and round once, so they differ by about one bf16 ulp
+# (at most 2**-7 of the value) plus the f32 gap.
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-3, 1e-2)}
+MLSTM_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (2e-3, 1e-2)}
+
+
+def layer_windows(cfg):
+    """Per-layer window (0 = global), as repro.models.transformer does."""
+    w = [cfg["window"]] * cfg["layers"]
+    for i in range(cfg["global_every"] - 1, cfg["layers"],
+                   cfg["global_every"]):
+        w[i] = 0
+    return w
+
+
+def unmasked_scores(sq, skv, window):
+    """Scores that the causal mask (and a window > 0) leave live, for sq
+    query rows over skv keys."""
+    return sum(min(q + 1, skv) if window <= 0 else min(q + 1, skv, window)
+               for q in range(sq))
+
+
+def allclose_err(got, want, tol):
+    """(max |got - want|, max |got - want| / (atol + rtol * |want|)) for
+    ``tol = (atol, rtol)``: the second is at most 1 where they agree."""
+    a, b = got.detach().cpu().float(), want.float()
+    diff = (a - b).abs()
+    return float(diff.max()), float((diff / (tol[0] + tol[1] * b.abs())).max())
+
+
+def cim_kernels_phase(dev):
+    """Phase 5: the CiM kernels through ``repro_torch.kernels.ops``."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ints(shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    g, x = GEMMA, XLSTM
+    windows = layer_windows(g)
+    attn_in = {dt: [tuple(normal(g["batch"], h, g["seq"], g["head_dim"],
+                                 dtype=dt)
+                          for h in (g["heads"], g["kv_heads"], g["kv_heads"]))
+                    for _ in windows]
+               for dt in (torch.float32, torch.bfloat16)}
+    mlstm_in = [(*(normal(x["batch"], x["heads"], x["seq"], x["head_dim"])
+                   for _ in range(3)),
+                 normal(x["batch"], x["heads"], x["seq"]),
+                 normal(x["batch"], x["heads"], x["seq"]) + 3.0)
+                for _ in range(x["blocks"])]
+    bx, by, bz = ints(BULK_SHAPE), ints(BULK_SHAPE), ints(BULK_SHAPE)
+    torch.cuda.synchronize()
+
+    # ---- the counted run: one prefill's launches of each kernel
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    attn_out = {dt: [ops.flash_attention(q, k, v, causal=True, window=w)
+                     for (q, k, v), w in zip(ins, windows)]
+                for dt, ins in attn_in.items()}
+    mlstm_out = [ops.mlstm_chunkwise(*a, chunk=x["chunk"]) for a in mlstm_in]
+    bulk_out = {(op, dt): ops.cim_bulk(bx.view(dt), by.view(dt), op=op)
+                for dt in (torch.int32, torch.uint32) for op in BULK_OPS}
+    fused_out = {dt: ops.cim_fused(bx.view(dt), by.view(dt), bz.view(dt),
+                                   op1="add", op2="xor")
+                 for dt in (torch.int32, torch.uint32)}
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expect = {"flash_attention": 2 * g["layers"],
+              "mlstm_chunkwise": x["blocks"],
+              "cim_bitwise": 2 * len(BULK_OPS), "cim_bitwise_fused": 2}
+    print(f"kernels path: {path_s:.2f} s wall; launches "
+          + json.dumps(launches), flush=True)
+    for name in kernels.KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was never launched on the kernels path")
+    if launches != expect:
+        fail(f"kernels path launches {launches}, expected {expect}")
+
+    # ---- each kernel against its plain version, on CPU copies
+    # max |kernel - plain| per kernel; bf16 results are held apart
+    err = dict.fromkeys((*kernels.KERNELS, "flash_attention bf16",
+                         "mlstm_chunkwise bf16"), 0.0)
+
+    def check_int(name, got, want, what):
+        a, b = got.cpu().view(torch.int32), want.view(torch.int32)
+        if got.dtype != want.dtype or not torch.equal(a, b):
+            fail(f"{name} differs from its plain version on {what}")
+        err[name] = max(err[name], float(
+            (a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+
+    for (op, dt), got in bulk_out.items():
+        check_int("cim_bitwise", got, ops.cim_bulk(
+            bx.view(dt).cpu(), by.view(dt).cpu(), op=op),
+                  f"{op} {dt} {BULK_SHAPE}")
+    for dt, got in fused_out.items():
+        check_int("cim_bitwise_fused", got, ops.cim_fused(
+            bx.view(dt).cpu(), by.view(dt).cpu(), bz.view(dt).cpu()),
+                  f"add/xor {dt} {BULK_SHAPE}")
+    cpu_gen = torch.Generator().manual_seed(6)
+    for dt in (torch.int32, torch.uint32):     # tests/test_kernels.py shapes
+        for shape in ((8, 128), (100, 300), (17, 1000), (1, 64)):
+            a, b = (torch.randint(0, 2 ** 20, shape, generator=cpu_gen,
+                                  dtype=torch.int32).view(dt)
+                    for _ in range(2))
+            for op in BULK_OPS:
+                check_int("cim_bitwise", ops.cim_bulk(
+                    a.to(dev), b.to(dev), op=op), ops.cim_bulk(a, b, op=op),
+                          f"{op} {dt} {shape}")
+    a, b, c = (torch.randint(0, 2 ** 16, (64, 256), generator=cpu_gen,
+                             dtype=torch.int32) for _ in range(3))
+    check_int("cim_bitwise_fused", ops.cim_fused(
+        a.to(dev), b.to(dev), c.to(dev)), ops.cim_fused(a, b, c),
+              "add/xor (64, 256)")
+
+    def check_float(name, got, want, tol, what):
+        e, share = allclose_err(got, want, tol)
+        print(f"  {name} {what}: max_abs_err {e:.3g} (atol {tol[0]:g}, "
+              f"rtol {tol[1]:g}; {share:.3f} of the tolerance)", flush=True)
+        if not share <= 1.0:
+            fail(f"{name} differs from its plain version on {what} beyond "
+                 f"atol {tol[0]:g}, rtol {tol[1]:g}: max_abs_err {e}")
+        key = f"{name} bf16" if got.dtype == torch.bfloat16 else name
+        err[key] = max(err[key], e)
+
+    first_global = windows.index(0)
+    for dt in (torch.float32, torch.bfloat16):
+        for li in (0, first_global):
+            q, k, v = (t.cpu() for t in attn_in[dt][li])
+            check_float("flash_attention", attn_out[dt][li],
+                        ops.flash_attention(q, k, v, causal=True,
+                                            window=windows[li]),
+                        FLASH_TOL[dt],
+                        f"gemma3-1b layer {li} (window {windows[li]}) {dt}")
+    check_float("mlstm_chunkwise", mlstm_out[0], ops.mlstm_chunkwise(
+        *(t.cpu() for t in mlstm_in[0]), chunk=x["chunk"]),
+                MLSTM_TOL[torch.float32], "xlstm-125m block 0")
+    for B, H, Hkv, S, d in ((1, 2, 2, 128, 32), (2, 4, 2, 256, 64),
+                            (1, 8, 1, 128, 64)):
+        for window in (0, 32):
+            q = torch.randn(B, H, S, d, generator=cpu_gen)
+            k, v = (torch.randn(B, Hkv, S, d, generator=cpu_gen)
+                    for _ in range(2))
+            check_float("flash_attention", ops.flash_attention(
+                q.to(dev), k.to(dev), v.to(dev), window=window, block_q=64,
+                block_k=64), ops.flash_attention(
+                q, k, v, window=window, block_q=64, block_k=64),
+                        FLASH_TOL[torch.float32],
+                        f"{(B, H, Hkv, S, d)} window {window}")
+    q, k, v = (torch.randn(1, 2, 128, 64, generator=cpu_gen).to(
+        torch.bfloat16) for _ in range(3))
+    check_float("flash_attention", ops.flash_attention(
+        q.to(dev), k.to(dev), v.to(dev), block_q=64, block_k=64),
+                ops.flash_attention(q, k, v, block_q=64, block_k=64),
+                FLASH_TOL[torch.bfloat16], "(1, 2, 2, 128, 64) bf16")
+    q = torch.randn(1, 2, 100, 32, generator=cpu_gen)  # ragged, Sq > Skv
+    k, v = (torch.randn(1, 2, 70, 32, generator=cpu_gen) for _ in range(2))
+    check_float("flash_attention", ops.flash_attention(
+        q.to(dev), k.to(dev), v.to(dev), block_q=64, block_k=64),
+                ops.flash_attention(q, k, v, block_q=64, block_k=64),
+                FLASH_TOL[torch.float32], "ragged Sq=100 > Skv=70")
+    for B, H, S, dh, chunk in ((1, 1, 64, 16, 16), (2, 2, 128, 32, 32),
+                               (1, 2, 128, 64, 64)):
+        a = (*(torch.randn(B, H, S, dh, generator=cpu_gen)
+               for _ in range(3)),
+             torch.randn(B, H, S, generator=cpu_gen),
+             torch.randn(B, H, S, generator=cpu_gen) + 3.0)
+        check_float("mlstm_chunkwise", ops.mlstm_chunkwise(
+            *(t.to(dev) for t in a), chunk=chunk), ops.mlstm_chunkwise(
+            *a, chunk=chunk), MLSTM_TOL[torch.float32],
+                    f"{(B, H, S, dh)} chunk {chunk}")
+    # bf16 q/k/v at xlstm-125m's width, two chunks of a short sequence
+    a = (*(torch.randn(2, x["heads"], 256, x["head_dim"], generator=cpu_gen)
+           .to(torch.bfloat16) for _ in range(3)),
+         torch.randn(2, x["heads"], 256, generator=cpu_gen),
+         torch.randn(2, x["heads"], 256, generator=cpu_gen) + 3.0)
+    check_float("mlstm_chunkwise", ops.mlstm_chunkwise(
+        *(t.to(dev) for t in a), chunk=x["chunk"]), ops.mlstm_chunkwise(
+        *a, chunk=x["chunk"]), MLSTM_TOL[torch.bfloat16],
+                f"(2, {x['heads']}, 256, {x['head_dim']}) bf16")
+
+    # ---- times: kernel (events), plain version (host), bound, library
+    table = {}
+    n_bulk = bx.numel()
+    bulk_bytes = n_bulk * bx.element_size()
+    xc, yc, zc = bx.cpu(), by.cpu(), bz.cpu()
+    variants = {}
+    for op, lib in (("and", torch.bitwise_and), ("add", torch.add)):
+        ms = event_ms(lambda: ops.cim_bulk(bx, by, op=op), 20)
+        lib_ms = event_ms(lambda: lib(bx, by), 20)
+        plain = host_ms(lambda: ops.cim_bulk(xc, yc, op=op), 3)
+        variants[op] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms)
+        print(f"cim_bitwise {op} {BULK_SHAPE} int32: {ms:.4f} ms kernel, "
+              f"{lib_ms:.4f} ms library, {plain:.2f} ms plain (host)",
+              flush=True)
+    bound, by_ = bytes_bound_ms(3 * bulk_bytes, n_bulk)
+    table["cim_bitwise"] = dict(
+        source="src/repro_torch/kernels/csrc/cim_bitwise.cu",
+        replaces="src/repro/kernels/cim_bitwise.py:36",
+        twin="src/repro/kernels/cim_bitwise.py::cim_bitwise",
+        equal=True, tolerance=0, **variants["and"], bound_ms=bound,
+        bound_by=by_,
+        library_call="torch.bitwise_and", variants=variants,
+        shape=f"{BULK_SHAPE} int32, op and")
+    ms = event_ms(lambda: ops.cim_fused(bx, by, bz), 20)
+    plain = host_ms(lambda: ops.cim_fused(xc, yc, zc), 3)
+    bound, by_ = bytes_bound_ms(4 * bulk_bytes, 2 * n_bulk)
+    table["cim_bitwise_fused"] = dict(
+        source="src/repro_torch/kernels/csrc/cim_bitwise.cu",
+        replaces="src/repro/kernels/cim_bitwise.py:64",
+        twin="src/repro/kernels/cim_bitwise.py::cim_bitwise_fused",
+        equal=True, tolerance=0, ms=ms, plain_ms=plain, library_ms=None,
+        bound_ms=bound, bound_by=by_,
+        shape=f"{BULK_SHAPE} int32, (x add y) xor z")
+    print(f"cim_bitwise_fused {BULK_SHAPE} int32: {ms:.4f} ms kernel, "
+          f"{plain:.2f} ms plain (host)", flush=True)
+
+    S, d = g["seq"], g["head_dim"]
+    band = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    band = band & ~torch.ones_like(band).tril(-g["window"])
+    variants = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for li, kind in ((first_global, "global"), (0, "window")):
+            q, k, v = attn_in[dt][li]
+            w = windows[li]
+            ms = event_ms(lambda: ops.flash_attention(q, k, v, window=w), 10)
+            if w:
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=band, enable_gqa=True)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            lib_ms = event_ms(lib, 10)
+            qc_, kc_, vc_ = q.cpu(), k.cpu(), v.cpu()
+            plain = host_ms(lambda: ops.flash_attention(qc_, kc_, vc_,
+                                                        window=w), 1)
+            n_ops = 4 * d * g["batch"] * g["heads"] * unmasked_scores(S, S, w)
+            n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+            bound, by_ = bytes_bound_ms(
+                n_bytes, n_ops, FP32_OPS_PER_S if dt == torch.float32
+                else BF16_OPS_PER_S)
+            key = f"{str(dt).split('.')[-1]} {kind}"
+            variants[key] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                                 bound_ms=bound, bound_by=by_, flop=n_ops)
+            print(f"flash_attention {key} (window {w}): {ms:.4f} ms kernel, "
+                  f"{lib_ms:.4f} ms library, {plain:.1f} ms plain (host), "
+                  f"bound {bound:.4f} ms ({by_})", flush=True)
+        ins = attn_in[dt]
+        prefill = event_ms(lambda: [ops.flash_attention(q, k, v, window=w)
+                                    for (q, k, v), w in zip(ins, windows)],
+                           2)
+        variants[f"{str(dt).split('.')[-1]} prefill"] = dict(ms=prefill)
+        print(f"flash_attention {dt} prefill ({g['layers']} launches): "
+              f"{prefill:.3f} ms", flush=True)
+    top = variants["float32 global"]
+    table["flash_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:71",
+        twin="src/repro/kernels/flash_attention.py::flash_attention",
+        within_tolerance=True, tolerance=FLASH_TOL[torch.float32], **{
+            k_: top[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")},
+        bf16_tolerance=FLASH_TOL[torch.bfloat16],
+        bf16_max_abs_err=err["flash_attention bf16"],
+        library_call="F.scaled_dot_product_attention (enable_gqa; causal, "
+                     "or a boolean band mask for window 512)",
+        launches_per_prefill=g["layers"], variants=variants,
+        shape=f"gemma3-1b: B={g['batch']}, H={g['heads']}, "
+              f"Hkv={g['kv_heads']}, S={S}, d={d}; f32 global layer")
+
+    a = mlstm_in[0]
+    ms = event_ms(lambda: ops.mlstm_chunkwise(*a, chunk=x["chunk"]), 5)
+    a_cpu = [t.cpu() for t in a]
+    plain = host_ms(lambda: ops.mlstm_chunkwise(*a_cpu, chunk=x["chunk"]), 1)
+    K, dh, S = x["chunk"], x["head_dim"], x["seq"]
+    chains = x["batch"] * x["heads"]
+    # per chunk: q.k^T and w.v over the causal pairs j <= t, 2*dh each,
+    # and q.C and k^T.v, 2*K*dh^2 each
+    chunk_flop = 4 * dh * (K * (K + 1) // 2) + 4 * K * dh * dh
+    n_ops = chunk_flop * chains * (S // K)
+    n_bytes = sum(t.numel() * t.element_size() for t in a) \
+        + a[0].numel() * a[0].element_size()
+    bound, by_ = bytes_bound_ms(n_bytes, n_ops)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chain_floor = chunk_flop * (S // K) / (FP32_OPS_PER_S / sms) * 1e3
+    prefill = event_ms(lambda: [ops.mlstm_chunkwise(*b, chunk=K)
+                                for b in mlstm_in], 2)
+    table["mlstm_chunkwise"] = dict(
+        source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        replaces="src/repro/kernels/mlstm_chunk.py:82",
+        twin="src/repro/kernels/mlstm_chunk.py::mlstm_chunkwise",
+        within_tolerance=True, tolerance=MLSTM_TOL[torch.float32], ms=ms,
+        plain_ms=plain, library_ms=None,
+        bf16_tolerance=MLSTM_TOL[torch.bfloat16],
+        bf16_max_abs_err=err["mlstm_chunkwise bf16"],
+        bound_ms=bound, bound_by=by_, chain_bound_ms=chain_floor,
+        launches_per_prefill=x["blocks"], prefill_ms=prefill,
+        shape=f"xlstm-125m: B={x['batch']}, H={x['heads']}, S={S}, "
+              f"dh={dh}, chunk {K}, f32")
+    print(f"mlstm_chunkwise: {ms:.3f} ms kernel, {plain:.1f} ms plain "
+          f"(host); bound {bound:.4f} ms ({by_}), one-SM-per-chain floor "
+          f"{chain_floor:.4f} ms; prefill ({x['blocks']} launches) "
+          f"{prefill:.3f} ms", flush=True)
+    for name in kernels.KERNELS:
+        table[name]["max_abs_err"] = err[name]
+    return table, launches, path_s
 
 
 def main():
@@ -93,11 +433,12 @@ def main():
     from repro_torch.core.accel import _build
     from repro_torch.core.accel import replay as replay_mod
     from repro_torch.core.accel.pallas_ops import segment_max, segment_sum
-    from repro_torch.core.accel.place import _flat_arrays
+    from repro_torch.core.accel.place import _flat_arrays, place_candidates
     from repro_torch.core.accel.replay import replay_columns_batch
     from repro_torch.core.cache import SPM_1M
     from repro_torch.core.isa import OP_STORE
     from repro_torch.core.offload import OffloadConfig, select_candidates
+    from repro_torch.kernels import CSRC as CIM_CSRC
     from repro_torch.core.trace import attach_cache_results_batch
     from repro_torch.workloads import fixtures
 
@@ -118,7 +459,8 @@ def main():
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    per_source = _build.build([*_build.sources().values(), PROBES])
+    per_source = _build.build([*_build.sources().values(),
+                               *sorted(CIM_CSRC.glob("*.cu")), PROBES])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(per_source)}", flush=True)
     detail["build_s"] = build_s
@@ -281,6 +623,44 @@ def main():
               f"{lib_ms:.4f} ms library, {plain:.3f} ms plain (host)",
               flush=True)
 
+    # placement (K4), composed from the segment kernels and torch ops, on
+    # the same astar placement: on the card, and as its plain version on
+    # the CPU trace of the same workload
+    tr_cpu = attach_cache_results_batch(
+        fixtures.load_structural("astar", device="cpu"), [geos[0]],
+        device="cpu")[0]
+    select_candidates(tr_cpu.trace, cfg, device="cpu")
+    part_cpu = tr_cpu.trace._struct["partitions"][cfg.partition_key()]
+    if place_candidates(part, tr.trace, cfg) != place_candidates(
+            part_cpu, tr_cpu.trace, cfg):
+        fail("placement on the card differs from its plain version")
+    place_ms = host_ms(lambda: place_candidates(part, tr.trace, cfg), 20)
+    place_plain = host_ms(
+        lambda: place_candidates(part_cpu, tr_cpu.trace, cfg), 5)
+    # bytes: the flat arrays, the trace columns gathered through them, one
+    # bank per proto, and four int32 results per proto
+    tt = tr.trace
+    n_leaf, n_acc_p = leaf_seq.numel(), acc_seq.numel()
+    place_bytes = (
+        n_leaf * (leaf_seq.element_size() + leaf_pid.element_size()
+                  + tt.level.element_size())
+        + n_acc_p * (acc_seq.element_size() + acc_pid.element_size()
+                     + tt.level.element_size() + tt.addr.element_size())
+        + n_seg * (8 + tt.bank.element_size() + 4 * 4))
+    place_bound, place_by = bytes_bound_ms(place_bytes, n_leaf + n_acc_p)
+    composed = {"place_candidates": dict(
+        twin="src/repro/core/accel/place.py::place_candidates_jax",
+        source="src/repro_torch/core/accel/place.py",
+        replaces="src/repro/core/accel/place.py:144", equal=True,
+        ms=place_ms, plain_ms=place_plain, bound_ms=place_bound,
+        bound_by=place_by, library_ms=None,
+        shape=f"{n_leaf} leaves, {n_acc_p} accesses, {n_seg} protos "
+              "(astar, 32K+256K, both levels)")}
+    print(f"place_candidates (K4, composed): equal; {place_ms:.4f} ms on "
+          f"the card (host clock, ends in a read), {place_plain:.3f} ms "
+          f"plain (host); bound {place_bound:.6f} ms ({place_by})",
+          flush=True)
+
     # ------------------------------------------------------- 4. main path
     golden = fixtures.reference_reports()["workloads"]
     stage = {}
@@ -314,10 +694,11 @@ def main():
     print("stage seconds: " + json.dumps(
         {k: round(v, 3) for k, v in stage.items()}), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
+    composed["place_candidates"]["launches"] = launches["segment_max"]
     detail.update(stage_seconds=stage, workload_seconds=per_workload,
                   main_path_wall_s=wall, launches=launches,
                   mismatches=[repr(m) for m in mismatches[:50]],
-                  kernels=kernels)
+                  kernels=kernels, composed=composed)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     if mismatches or n_rec != 306 or n_equal != n_rec:
         for m in mismatches[:10]:
@@ -327,22 +708,35 @@ def main():
         if launches[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
 
-    # ---------------------------------------------------------- 5. result
+    # ---------------------------------------------------- 5. kernels path
+    cim_table, cim_launches, cim_path_s = cim_kernels_phase(dev)
+    kernels.update(cim_table)
+    launches.update(cim_launches)
+    detail.update(kernels=kernels, launches=launches,
+                  kernels_path_wall_s=cim_path_s)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+
+    # ---------------------------------------------------------- 6. result
     table = []
-    for name in accel.KERNELS:
+    for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]
         table.append({"name": name, "route": "cuda", "source": k["source"],
                       "replaces": k["replaces"], "twin": k["twin"],
-                      "launches": launches[name], "equal": k["equal"],
-                      "tolerance": 0, "max_abs_err": k["max_abs_err"],
-                      "ms": k["ms"],
+                      "launches": launches[name],
+                      "tolerance": k.get("tolerance", 0),
+                      **{x: k[x] for x in ("equal", "within_tolerance")
+                         if x in k},
+                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                       "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                       "bound_by": k["bound_by"],
                       "library_ms": k["library_ms"], "shape": k["shape"],
                       **{x: k[x] for x in (
                           "latency_bound_ms", "latency_bound_per_geometry_ms",
                           "l2_round_trip_ns", "smem_round_trip_ns",
-                          "empty_stream_ms", "all_hit_ns_per_access")
+                          "empty_stream_ms", "all_hit_ns_per_access",
+                          "chain_bound_ms", "launches_per_prefill",
+                          "prefill_ms", "bf16_tolerance", "bf16_max_abs_err",
+                          "library_call", "variants")
                          if x in k}})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -6,7 +6,13 @@ runs on a machine that has only the port.  On a GPU machine::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Comparisons are exact: the kernels are integer.
+The analysis kernels (replay, segment reductions) and the bulk CiM ops
+are integer, and compared exactly; attention and mLSTM are held to their
+plain versions (``repro_torch.kernels.ref``) within the reference's own f32
+bounds (2e-5 for attention, 2e-3 for mLSTM).  A bf16 result is held to
+atol 2e-3 and rtol 1e-2: both sides compute in f32 from the same bf16
+inputs and round once, so they differ by at most about one bf16 ulp
+(2**-7 of the value) plus the f32 gap.
 """
 import numpy as np
 import pytest
@@ -17,6 +23,8 @@ from repro_torch.core.accel.pallas_ops import segment_max, segment_sum
 from repro_torch.core.accel.replay import replay_columns_batch
 from repro_torch.core.cache import CacheConfig, SPM_1M
 from repro_torch.core.isa import OP_STORE
+from repro_torch import kernels
+from repro_torch.kernels import ops
 from repro_torch.workloads import fixtures
 
 pytestmark = pytest.mark.cuda
@@ -100,3 +108,114 @@ def test_design_points_on_the_card_equal_reference_reports(cuda, name):
     assert records == golden["records"]
     assert counters == golden["counters"]
     assert all(v > 0 for v in accel.launch_counts().values())
+
+
+# ------------------------------------------------- repro_torch.kernels
+def _ints(shape, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                      dtype=torch.int32)
+    return x.view(dtype)
+
+
+def _launched(name, fn):
+    before = kernels.launch_counts()[name]
+    out = fn()
+    assert kernels.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32])
+@pytest.mark.parametrize("shape", [(8, 128), (17, 1000), (1, 64),
+                                   (4096, 1031)])
+@pytest.mark.parametrize("op", ["and", "or", "xor", "add", "sub"])
+def test_cim_bulk_kernel_matches_plain(cuda, op, shape, dtype):
+    x, y = _ints(shape, dtype, 1), _ints(shape, dtype, 2)
+    got = _launched("cim_bitwise",
+                    lambda: ops.cim_bulk(x.to(cuda), y.to(cuda), op=op))
+    assert got.device.type == "cuda" and got.dtype == dtype
+    want = ops.cim_bulk(x, y, op=op)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("op1,op2", [("add", "xor"), ("sub", "and"),
+                                     ("or", "add")])
+def test_cim_fused_kernel_matches_plain_unaligned(cuda, op1, op2):
+    # offset views: the kernel's scalar path (no 16-byte alignment)
+    x, y, z = (_ints((3, 1001), torch.int32, s) for s in (3, 4, 5))
+    xs, ys, zs = (a.to(cuda).flatten()[1:] for a in (x, y, z))
+    got = _launched("cim_bitwise_fused",
+                    lambda: ops.cim_fused(xs, ys, zs, op1=op1, op2=op2))
+    want = ops.cim_fused(*(a.flatten()[1:] for a in (x, y, z)), op1=op1,
+                         op2=op2)
+    assert torch.equal(got.cpu(), want)
+
+
+def _normal(shape, seed, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dtype)
+
+
+F32_FLASH = (2e-5, 2e-5)          # (atol, rtol)
+BF16 = (2e-3, 1e-2)
+
+
+@pytest.mark.parametrize("shape,window,dtype,tol", [
+    # (B, H, Hkv, Sq, Skv, d)
+    ((1, 2, 2, 128, 128, 32), 0, torch.float32, F32_FLASH),
+    ((2, 4, 2, 256, 256, 64), 32, torch.float32, F32_FLASH),
+    ((1, 8, 1, 128, 128, 64), 0, torch.float32, F32_FLASH),
+    ((1, 4, 1, 1024, 1024, 256), 512, torch.float32, F32_FLASH),  # gemma3-1b
+    ((1, 4, 1, 1024, 1024, 256), 0, torch.bfloat16, BF16),
+    ((1, 2, 2, 100, 70, 32), 16, torch.float32, F32_FLASH),  # ragged quirk
+])
+def test_flash_attention_kernel_matches_plain(cuda, shape, window, dtype,
+                                              tol):
+    B, H, Hkv, Sq, Skv, d = shape
+    q = _normal((B, H, Sq, d), 6, dtype)
+    k, v = _normal((B, Hkv, Skv, d), 7, dtype), _normal((B, Hkv, Skv, d), 8,
+                                                        dtype)
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), causal=True, window=window,
+        block_q=64, block_k=64))
+    want = ops.flash_attention(q, k, v, causal=True, window=window,
+                               block_q=64, block_k=64)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
+F32_MLSTM = (2e-3, 2e-3)
+
+
+def _mlstm_args(B, H, S, dh, dtype=torch.float32):
+    q, k, v = (_normal((B, H, S, dh), s, dtype) for s in (9, 10, 11))
+    return q, k, v, _normal((B, H, S), 12), _normal((B, H, S), 13) + 3.0
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    # (B, H, S, dh, chunk)
+    ((1, 1, 64, 16, 16), torch.float32, F32_MLSTM),
+    ((2, 2, 128, 32, 32), torch.float32, F32_MLSTM),
+    ((1, 2, 128, 64, 64), torch.float32, F32_MLSTM),
+    ((1, 2, 48, 16, 32), torch.float32, F32_MLSTM),      # chunk halves to 16
+    ((2, 4, 256, 192, 128), torch.float32, F32_MLSTM),   # xlstm-125m
+    ((2, 4, 256, 192, 128), torch.bfloat16, BF16),
+])
+def test_mlstm_kernel_matches_plain(cuda, shape, dtype, tol):
+    B, H, S, dh, chunk = shape
+    args = _mlstm_args(B, H, S, dh, dtype)
+    got = _launched("mlstm_chunkwise", lambda: ops.mlstm_chunkwise(
+        *(a.to(cuda) for a in args), chunk=chunk))
+    want = ops.mlstm_chunkwise(*args, chunk=chunk)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
+def test_mlstm_kernel_chunk_invariance(cuda):
+    args = [a.to(cuda) for a in _mlstm_args(1, 2, 256, 64)]
+    o32 = ops.mlstm_chunkwise(*args, chunk=32)
+    o128 = ops.mlstm_chunkwise(*args, chunk=128)
+    torch.testing.assert_close(o32, o128, atol=F32_MLSTM[0],
+                               rtol=F32_MLSTM[1])

@@ -43,7 +43,51 @@ def test_port_runs_with_jax_repro_and_triton_blocked():
     assert out["record"] == {k: want[k] for k in out["record"]}
 
 
+_BLOCKED_KERNELS = r"""
+import json, sys
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+import torch
+from repro_torch import kernels
+from repro_torch.kernels import ops, ref
+g = torch.Generator().manual_seed(0)
+x, y = (torch.randint(0, 2 ** 20, (17, 1000), generator=g, dtype=torch.int32)
+        for _ in range(2))
+q, k, v = (torch.randn(1, 2, 64, 16, generator=g) for _ in range(3))
+gates = [torch.randn(1, 2, 64, generator=g) for _ in range(2)]
+checks = {
+    "bulk": torch.equal(ops.cim_bulk(x, y, op="add"), x + y),
+    "fused": torch.equal(ops.cim_fused(x, y, x), (x + y) ^ x),
+    "flash": torch.allclose(ops.flash_attention(q, k, v, block_q=32,
+                                                block_k=32),
+                            ref.flash_attention_ref(q, k, v), atol=2e-5),
+    "mlstm": torch.allclose(ops.mlstm_chunkwise(q, k, v, *gates, chunk=16),
+                            ref.mlstm_chunkwise_ref(q, k, v, *gates),
+                            atol=2e-3),
+}
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"checks": checks, "loaded": loaded,
+                  "kernels": list(kernels.KERNELS)}))
+"""
+
+
+def test_kernel_package_runs_with_jax_repro_and_triton_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_KERNELS], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["checks"] == dict.fromkeys(("bulk", "fused", "flash",
+                                           "mlstm"), True)
+    assert out["kernels"] == ["cim_bitwise", "cim_bitwise_fused",
+                              "flash_attention", "mlstm_chunkwise"]
+
+
 _FORBIDDEN = re.compile(r"\bimport jax\b|\bfrom jax\b|\bimport repro\b"
+                        r"|\bimport triton\b|\bfrom triton\b"
                         r"|\bfrom repro\.")
 
 
@@ -83,3 +127,6 @@ def test_cuda_device_without_a_card_raises():
                                torch.zeros(3, dtype=torch.bool),
                                [fixtures.CACHES["32K+256K"]])
     assert out[0][0].device.type == "cpu"
+    from repro_torch.kernels import ops
+    x = torch.zeros(8, 128, dtype=torch.int32)
+    assert ops.cim_bulk(x, x).device.type == "cpu"

@@ -1,0 +1,223 @@
+"""The port's CiM kernel package against the reference's, on the CPU.
+
+``repro_torch.kernels.ops`` and ``ref`` against ``repro.kernels.ops`` run
+in Pallas interpret mode (as ``tests/test_kernels.py`` runs it) and
+against ``repro.kernels.ref``, on the same seeded numpy inputs.  On the
+CPU each port wrapper takes its kernel's plain version, the oracle of
+``repro_torch.kernels.ref`` behind the reference's padding and blocking,
+so these tests hold the function that the CUDA kernels reproduce on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Bounds are the
+reference tests' own: ``==`` for the integer ops, 2e-5 for f32 attention,
+5e-2 for bf16 attention, 2e-3 for mLSTM.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+torch = pytest.importorskip("torch")  # CI images without torch skip the port
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro.models.attention import flash_attention_jnp
+
+from repro_torch import kernels
+from repro_torch.kernels import ops, ref
+
+OPS = ("and", "or", "xor", "add", "sub")
+SHAPES = ((8, 128), (100, 300), (17, 1000), (1, 64))
+
+
+def _r(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+# ------------------------------------------------------------- cim_bitwise
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("op", OPS)
+def test_cim_bulk_matches_reference(op, shape, dtype):
+    r = _r(100 + 10 * OPS.index(op) + SHAPES.index(shape))
+    # full 32-bit range: add and sub wrap in both packages
+    x = r.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(dtype)
+    y = r.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(dtype)
+    want = np.asarray(ref_ops.cim_bulk(jnp.asarray(x), jnp.asarray(y), op=op,
+                                       interpret=True))
+    got = ops.cim_bulk(_t(x), _t(y), op=op)
+    assert got.shape == shape and got.numpy().dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ref.cim_bitwise_ref(_t(x), _t(y), op=op).numpy(),
+        np.asarray(ref_ref.cim_bitwise_ref(jnp.asarray(x), jnp.asarray(y),
+                                           op=op)))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32])
+def test_cim_fused_composite_matches_reference(dtype):
+    r = _r(0)
+    x, y, z = (r.integers(0, 2 ** 16, (64, 256)).astype(dtype)
+               for _ in range(3))
+    want = np.asarray(ref_ops.cim_fused(*map(jnp.asarray, (x, y, z)),
+                                        op1="add", op2="xor",
+                                        interpret=True))
+    got = ops.cim_fused(_t(x), _t(y), _t(z), op1="add", op2="xor")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ref.cim_bitwise_fused_ref(_t(x), _t(y), _t(z)).numpy(), want)
+
+
+def test_cim_ops_reject_mismatched_operands():
+    x = torch.zeros(4, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="share shape"):
+        ops.cim_bulk(x, torch.zeros(4, 9, dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32 or uint32"):
+        ops.cim_bulk(x.float(), x.float())
+    with pytest.raises(ValueError, match="unknown op"):
+        ops.cim_bulk(x, x, op="nand")
+
+
+# --------------------------------------------------------- flash_attention
+FLASH_SHAPES = ((1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 64))
+
+
+def _qkv(seed, B, H, Hkv, Sq, d, Skv=None, dtype=np.float32):
+    r = _r(seed)
+    Skv = Sq if Skv is None else Skv
+    return (r.normal(size=(B, H, Sq, d)).astype(dtype),
+            r.normal(size=(B, Hkv, Skv, d)).astype(dtype),
+            r.normal(size=(B, Hkv, Skv, d)).astype(dtype))
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("window", [0, 32])
+def test_flash_attention_matches_reference(shape, window):
+    q, k, v = _qkv(200 + FLASH_SHAPES.index(shape) + window, *shape)
+    want = np.asarray(ref_ops.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=True, window=window,
+        block_q=64, block_k=64, interpret=True))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                              window=window, block_q=64, block_k=64)
+    _close(got.numpy(), want, 2e-5)
+    _close(ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=True,
+                                   window=window).numpy(),
+           np.asarray(ref_ref.flash_attention_ref(
+               *map(jnp.asarray, (q, k, v)), causal=True, window=window)),
+           2e-5)
+
+
+def test_flash_attention_bf16_matches_reference():
+    q, k, v = _qkv(7, 1, 2, 2, 128, 64)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+    want = ref_ops.flash_attention(jq, jk, jv, causal=True, block_q=64,
+                                   block_k=64, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=True, block_q=64,
+                              block_k=64)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(want, np.float32), 5e-2)
+    _close(ref.flash_attention_ref(tq, tk, tv).float().numpy(),
+           np.asarray(ref_ref.flash_attention_ref(jq, jk, jv), np.float32),
+           5e-2)
+
+
+@pytest.mark.parametrize("window", [0, 16])
+def test_flash_attention_ragged_causal_quirk(window):
+    """ROADMAP Queue 3: with causal masks and Sq > Skv, the rows past Skv
+    attend to the zero-padded keys, which neither package masks."""
+    q, k, v = _qkv(8, 1, 2, 2, 100, 32, Skv=70)
+    want = np.asarray(ref_ops.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=True, window=window,
+        block_q=64, block_k=64, interpret=True))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                              window=window, block_q=64, block_k=64)
+    assert got.shape == (1, 2, 100, 32)
+    _close(got.numpy(), want, 2e-5)
+    # the quirk itself: a row past Skv is not the attention over real keys
+    exact = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=True,
+                                    window=window)
+    assert not torch.allclose(got[:, :, 99], exact[:, :, 99], atol=1e-3)
+
+
+def test_flash_attention_non_causal_ragged_raises():
+    q, k, v = _qkv(9, 1, 2, 2, 128, 32, Skv=70)
+    with pytest.raises(ValueError, match="non-causal ragged"):
+        ref_ops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=False,
+                                block_q=64, block_k=64, interpret=True)
+    with pytest.raises(ValueError, match="non-causal ragged"):
+        ops.flash_attention(_t(q), _t(k), _t(v), causal=False, block_q=64,
+                            block_k=64)
+
+
+def test_flash_attention_matches_model_path():
+    """Port kernel path vs the reference model stack's chunked-jnp flash."""
+    r = _r(9)
+    B, H, S, d = 1, 2, 128, 32
+    q, k, v = (r.normal(size=(B, S, H, d)).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(flash_attention_jnp(*map(jnp.asarray, (q, k, v)),
+                                          causal=True, block=64))
+    got = ops.flash_attention(*(_t(a).transpose(1, 2) for a in (q, k, v)),
+                              causal=True, block_q=64,
+                              block_k=64).transpose(1, 2)
+    _close(got.numpy(), want, 2e-5)
+
+
+# ------------------------------------------------------------- mlstm_chunk
+MLSTM_SHAPES = ((1, 1, 64, 16, 16), (2, 2, 128, 32, 32), (1, 2, 128, 64, 64))
+
+
+def _mlstm_in(seed, B, H, S, dh):
+    r = _r(seed)
+    q, k, v = (r.normal(size=(B, H, S, dh)).astype(np.float32)
+               for _ in range(3))
+    ir = r.normal(size=(B, H, S)).astype(np.float32)
+    fr = (r.normal(size=(B, H, S)) + 3.0).astype(np.float32)
+    return q, k, v, ir, fr
+
+
+@pytest.mark.parametrize("shape", MLSTM_SHAPES)
+def test_mlstm_chunkwise_matches_reference(shape):
+    *dims, chunk = shape
+    a = _mlstm_in(300 + MLSTM_SHAPES.index(shape), *dims)
+    want = np.asarray(ref_ops.mlstm_chunkwise(*map(jnp.asarray, a),
+                                              chunk=chunk, interpret=True))
+    got = ops.mlstm_chunkwise(*map(_t, a), chunk=chunk)
+    _close(got.numpy(), want, 2e-3)
+    _close(ref.mlstm_chunkwise_ref(*map(_t, a)).numpy(),
+           np.asarray(ref_ref.mlstm_chunkwise_ref(*map(jnp.asarray, a))),
+           2e-3)
+
+
+def test_mlstm_chunk_invariance():
+    """The reference's chunk 16 and chunk 64 both give the port's result
+    (the port's kernel is held across chunks on the card)."""
+    a = _mlstm_in(11, 1, 1, 64, 16)
+    for chunk in (16, 64):
+        want = np.asarray(ref_ops.mlstm_chunkwise(
+            *map(jnp.asarray, a), chunk=chunk, interpret=True))
+        got = ops.mlstm_chunkwise(*map(_t, a), chunk=chunk)
+        _close(got.numpy(), want, 2e-3)
+
+
+def test_mlstm_ragged_chunk_halves_like_reference():
+    a = _mlstm_in(12, 1, 2, 48, 16)              # chunk 32 -> 16
+    want = np.asarray(ref_ops.mlstm_chunkwise(*map(jnp.asarray, a),
+                                              chunk=32, interpret=True))
+    _close(ops.mlstm_chunkwise(*map(_t, a), chunk=32).numpy(), want, 2e-3)
+
+
+def test_plain_versions_launch_nothing():
+    kernels.reset_launch_counts()
+    x = torch.zeros(8, 128, dtype=torch.int32)
+    ops.cim_bulk(x, x)
+    ops.cim_fused(x, x, x)
+    assert set(kernels.launch_counts()) == set(kernels.KERNELS)
+    assert all(n == 0 for n in kernels.launch_counts().values())
