@@ -8,7 +8,9 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
   1. device    -- the card's name and ``nvidia-smi`` name / power limit;
   2. build     -- compiles every ``csrc/*.cu`` of ``repro_torch.core.accel``
                   and of ``repro_torch.kernels`` and the latency probes of
-                  ``probes/latency.cu`` with nvcc, in parallel;
+                  ``probes/latency.cu`` with nvcc, in parallel, and prints
+                  the registers and spills of the attention and segment
+                  kernels;
   3. kernels   -- one L2 and one shared-memory round trip, the units of
                   the replay's latency floor; each kernel against its
                   plain version (plain on CPU
@@ -18,8 +20,11 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   n=0; the replay on the astar stream under the three
                   Fig. 14 geometries and the single-level SPM_1M;
                   then the times of kernel, plain version and the one
-                  PyTorch call computing the same function, where one exists,
-                  and the replay's time on an empty and on an all-hit stream;
+                  PyTorch call computing the same function, where one exists
+                  (kernel and library timed in turns: kernel, library,
+                  library, kernel), the segment reductions' device-only
+                  time and kernels per call from ``torch.profiler``, and
+                  the replay's time on an empty and on an all-hit stream;
   4. main path -- the 17 trace fixtures priced on the card: one batched
                   replay per workload over the Fig. 14 geometries, Algorithm 1
                   per Fig. 15 CiM level set, pricing per Fig. 16 technology:
@@ -50,6 +55,7 @@ compiler's register report, per-workload stage seconds) goes to
 import ctypes
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +86,65 @@ def event_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def turns_ms(kernel, library, reps):
+    """(kernel ms, library ms), each the mean of two CUDA-event runs taken
+    in turns -- kernel, library, library, kernel -- so a drift of the
+    card's clock falls on both alike."""
+    k1, l1 = event_ms(kernel, reps), event_ms(library, reps)
+    l2, k2 = event_ms(library, reps), event_ms(kernel, reps)
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def profiled_device_ms(fn, reps):
+    """(device-only ms per call, CUDA kernels per call) of ``fn`` from a
+    ``torch.profiler`` trace of ``reps`` calls: the summed time of the
+    kernels the card ran, without the host's dispatch.  (None, 0) when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+            n += e.count
+    if us <= 0:
+        return None, 0
+    return us / 1e3 / reps, n / reps
+
+
+def ptxas_summary(log):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: the entry's
+    name, its registers and its spill bytes."""
+    rows, entry, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            m = re.search(r"\d+([a-z_]+?(?:kernel|smem))(?:I(\w+?)E)?E",
+                          entry)
+            if m:
+                entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                      else "")
+        elif entry and "spill stores" in line:
+            spill = ", ".join(x.strip() for x in line.split(",")[1:])
+        elif entry and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            rows.append(f"{entry}: {regs}; {spill}")
+            entry = None
+    return rows
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def host_ms(fn, reps):
@@ -199,6 +264,7 @@ def cim_kernels_phase(dev):
     # max |kernel - plain| per kernel; bf16 results are held apart
     err = dict.fromkeys((*kernels.KERNELS, "flash_attention bf16",
                          "mlstm_chunkwise bf16"), 0.0)
+    share_of_tol = dict.fromkeys(err, 0.0)
 
     def check_int(name, got, want, what):
         a, b = got.cpu().view(torch.int32), want.view(torch.int32)
@@ -240,6 +306,7 @@ def cim_kernels_phase(dev):
                  f"atol {tol[0]:g}, rtol {tol[1]:g}: max_abs_err {e}")
         key = f"{name} bf16" if got.dtype == torch.bfloat16 else name
         err[key] = max(err[key], e)
+        share_of_tol[key] = max(share_of_tol[key], share)
 
     first_global = windows.index(0)
     for dt in (torch.float32, torch.bfloat16):
@@ -273,10 +340,23 @@ def cim_kernels_phase(dev):
                 FLASH_TOL[torch.bfloat16], "(1, 2, 2, 128, 64) bf16")
     q = torch.randn(1, 2, 100, 32, generator=cpu_gen)  # ragged, Sq > Skv
     k, v = (torch.randn(1, 2, 70, 32, generator=cpu_gen) for _ in range(2))
-    check_float("flash_attention", ops.flash_attention(
-        q.to(dev), k.to(dev), v.to(dev), block_q=64, block_k=64),
-                ops.flash_attention(q, k, v, block_q=64, block_k=64),
-                FLASH_TOL[torch.float32], "ragged Sq=100 > Skv=70")
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        check_float("flash_attention", ops.flash_attention(
+            qd.to(dev), kd.to(dev), vd.to(dev), block_q=64, block_k=64),
+                    ops.flash_attention(qd, kd, vd, block_q=64, block_k=64),
+                    FLASH_TOL[dt], f"ragged Sq=100 > Skv=70 {dt}")
+    for B, H, Hkv, S, d, window in ((2, 4, 2, 256, 64, 32),
+                                    (1, 8, 2, 256, 128, 0)):  # bf16 GQA
+        q = torch.randn(B, H, S, d, generator=cpu_gen).to(torch.bfloat16)
+        k, v = (torch.randn(B, Hkv, S, d, generator=cpu_gen)
+                .to(torch.bfloat16) for _ in range(2))
+        check_float("flash_attention", ops.flash_attention(
+            q.to(dev), k.to(dev), v.to(dev), window=window, block_q=64,
+            block_k=64), ops.flash_attention(
+            q, k, v, window=window, block_q=64, block_k=64),
+                    FLASH_TOL[torch.bfloat16],
+                    f"{(B, H, Hkv, S, d)} window {window} bf16")
     for B, H, S, dh, chunk in ((1, 1, 64, 16, 16), (2, 2, 128, 32, 32),
                                (1, 2, 128, 64, 64)):
         a = (*(torch.randn(B, H, S, dh, generator=cpu_gen)
@@ -304,8 +384,8 @@ def cim_kernels_phase(dev):
     xc, yc, zc = bx.cpu(), by.cpu(), bz.cpu()
     variants = {}
     for op, lib in (("and", torch.bitwise_and), ("add", torch.add)):
-        ms = event_ms(lambda: ops.cim_bulk(bx, by, op=op), 20)
-        lib_ms = event_ms(lambda: lib(bx, by), 20)
+        ms, lib_ms = turns_ms(lambda: ops.cim_bulk(bx, by, op=op),
+                              lambda: lib(bx, by), 20)
         plain = host_ms(lambda: ops.cim_bulk(xc, yc, op=op), 3)
         variants[op] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms)
         print(f"cim_bitwise {op} {BULK_SHAPE} int32: {ms:.4f} ms kernel, "
@@ -341,14 +421,14 @@ def cim_kernels_phase(dev):
         for li, kind in ((first_global, "global"), (0, "window")):
             q, k, v = attn_in[dt][li]
             w = windows[li]
-            ms = event_ms(lambda: ops.flash_attention(q, k, v, window=w), 10)
             if w:
                 lib = lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=band, enable_gqa=True)
             else:
                 lib = lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True)
-            lib_ms = event_ms(lib, 10)
+            ms, lib_ms = turns_ms(
+                lambda: ops.flash_attention(q, k, v, window=w), lib, 10)
             qc_, kc_, vc_ = q.cpu(), k.cpu(), v.cpu()
             plain = host_ms(lambda: ops.flash_attention(qc_, kc_, vc_,
                                                         window=w), 1)
@@ -361,8 +441,9 @@ def cim_kernels_phase(dev):
             variants[key] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
                                  bound_ms=bound, bound_by=by_, flop=n_ops)
             print(f"flash_attention {key} (window {w}): {ms:.4f} ms kernel, "
-                  f"{lib_ms:.4f} ms library, {plain:.1f} ms plain (host), "
-                  f"bound {bound:.4f} ms ({by_})", flush=True)
+                  f"{lib_ms:.4f} ms library ({ms / lib_ms:.2f}x; in "
+                  f"turns), {plain:.1f} ms plain (host), bound "
+                  f"{bound:.4f} ms ({by_})", flush=True)
         ins = attn_in[dt]
         prefill = event_ms(lambda: [ops.flash_attention(q, k, v, window=w)
                                     for (q, k, v), w in zip(ins, windows)],
@@ -370,6 +451,11 @@ def cim_kernels_phase(dev):
         variants[f"{str(dt).split('.')[-1]} prefill"] = dict(ms=prefill)
         print(f"flash_attention {dt} prefill ({g['layers']} launches): "
               f"{prefill:.3f} ms", flush=True)
+    print(f"flash_attention bf16 (tensor cores): max_abs_err "
+          f"{err['flash_attention bf16']:.3g}, "
+          f"{share_of_tol['flash_attention bf16']:.3f} of the tolerance "
+          f"(atol {FLASH_TOL[torch.bfloat16][0]:g}, rtol "
+          f"{FLASH_TOL[torch.bfloat16][1]:g})", flush=True)
     top = variants["float32 global"]
     table["flash_attention"] = dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -380,6 +466,7 @@ def cim_kernels_phase(dev):
                                    "bound_ms", "bound_by")},
         bf16_tolerance=FLASH_TOL[torch.bfloat16],
         bf16_max_abs_err=err["flash_attention bf16"],
+        bf16_share_of_tolerance=share_of_tol["flash_attention bf16"],
         library_call="F.scaled_dot_product_attention (enable_gqa; causal, "
                      "or a boolean band mask for window 512)",
         launches_per_prefill=g["layers"], variants=variants,
@@ -463,6 +550,9 @@ def main():
                                *sorted(CIM_CSRC.glob("*.cu")), PROBES])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(per_source)}", flush=True)
+    for src in ("flash_attention", "segment_reduce"):
+        for row in ptxas_summary(_build.build_logs.get(src, "")):
+            print(f"  ptxas {src}: {row}", flush=True)
     detail["build_s"] = build_s
     detail["build_logs"] = dict(_build.build_logs)
 
@@ -605,10 +695,17 @@ def main():
                                     - b.to(torch.int64)).abs().max()))
         v, i = depth, leaf_pid
         v_cpu, i_cpu = v.cpu(), i.cpu()
-        ms = event_ms(lambda: op(v, i, n_seg), 50)
-        plain = host_ms(lambda: op(v_cpu, i_cpu, n_seg), 20)
         i64 = i.to(torch.int64)
-        lib_ms = event_ms(lambda: lib_call(v, i64, n_seg), 50)
+        # 50 calls back to back: the rate at which the host path enqueues
+        ms, lib_ms = turns_ms(lambda: op(v, i, n_seg),
+                              lambda: lib_call(v, i64, n_seg), 50)
+        plain = host_ms(lambda: op(v_cpu, i_cpu, n_seg), 20)
+        dev_ms, per_call = profiled_device_ms(lambda: op(v, i, n_seg), 50)
+        lib_dev_ms, lib_per_call = profiled_device_ms(
+            lambda: lib_call(v, i64, n_seg), 50)
+        if dev_ms is not None and per_call != 1:
+            fail(f"{name} ran {per_call} kernels a call at n_segments="
+                 f"{n_seg}, not one launch without a fill")
         n = v.numel()
         bound, by = bytes_bound_ms(n * 8 + n_seg * 4, n)
         twin_line = 88 if name == "segment_sum" else 96
@@ -618,10 +715,40 @@ def main():
             replaces=f"src/repro/core/accel/pallas_ops.py:{twin_line}",
             equal=True, max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=lib_ms,
+            device_ms=dev_ms, kernels_per_call=per_call,
+            library_device_ms=lib_dev_ms,
+            library_kernels_per_call=lib_per_call,
             shape=f"n={n}, n_segments={n_seg}")
         print(f"{name}: equal on {len(cases)} cases; {ms:.4f} ms kernel, "
-              f"{lib_ms:.4f} ms library, {plain:.3f} ms plain (host)",
+              f"{lib_ms:.4f} ms library (events, 50 calls, in turns), "
+              f"{plain:.3f} ms plain (host); device only (profiler): "
+              f"kernel {ms_text(dev_ms)} in {per_call:g} launch(es) a "
+              f"call, library {ms_text(lib_dev_ms)} in {lib_per_call:g}",
               flush=True)
+
+    # the two paths of the segment kernels on either side of the
+    # shared-memory path's element limit, at astar's segment count, timed
+    # in turns
+    limit = 65536                  # SMEM_ELEMENTS, csrc/segment_reduce.cu
+    sides = {}
+    for n in (limit, limit + 1):
+        ids = torch.randint(0, n_seg, (n,), generator=gen, dtype=torch.int32)
+        ids = ids.sort().values.to(dev)
+        vals = torch.ones(n, dtype=torch.int32, device=dev)
+        if not torch.equal(segment_sum(vals, ids, n_seg).cpu(),
+                           segment_sum(vals.cpu(), ids.cpu(), n_seg)):
+            fail(f"segment_sum differs from its plain version at n={n}")
+        sides[n] = lambda vals=vals, ids=ids: segment_sum(vals, ids, n_seg)
+    threshold = dict(zip((limit, limit + 1), (
+        dict(ms=ms) for ms in turns_ms(sides[limit], sides[limit + 1], 50))))
+    for n, fn in sides.items():
+        dev_ms, per_call = profiled_device_ms(fn, 50)
+        threshold[n].update(device_ms=dev_ms, kernels_per_call=per_call)
+        print(f"segment_sum n={n}, n_segments={n_seg}: "
+              f"{threshold[n]['ms']:.4f} ms (events, in turns), device "
+              f"only {ms_text(dev_ms)} in {per_call:g} launch(es) a call",
+              flush=True)
+    detail["segment_threshold"] = threshold
 
     # placement (K4), composed from the segment kernels and torch ops, on
     # the same astar placement: on the card, and as its plain version on
@@ -736,7 +863,10 @@ def main():
                           "empty_stream_ms", "all_hit_ns_per_access",
                           "chain_bound_ms", "launches_per_prefill",
                           "prefill_ms", "bf16_tolerance", "bf16_max_abs_err",
-                          "library_call", "variants")
+                          "bf16_share_of_tolerance", "library_call",
+                          "device_ms", "kernels_per_call",
+                          "library_device_ms", "library_kernels_per_call",
+                          "variants")
                          if x in k}})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -3,7 +3,11 @@
 Twin of ``repro/core/accel/pallas_ops.py``.  The reference's Pallas
 kernels recast the scatter as a one-hot (8,128)x(128,128) contraction for
 the TPU's matrix unit; the port's kernels (``csrc/segment_reduce.cu``)
-are plain integer-atomic scatters, which a GPU does well.
+are plain integer-atomic scatters, which a GPU does well.  At placement's
+sizes a call costs its launch, not its bytes, so the host path is short:
+one output allocation (the kernel writes every segment, identity
+included) and one ctypes call, whose function, argument types and stream
+getter are bound once.
 
 Both match ``jax.ops.segment_sum`` / ``segment_max`` on int32: ids outside
 ``[0, n_segments)`` are dropped and an empty segment of the max is
@@ -48,19 +52,30 @@ def _plain(vals, ids, n_segments: int, is_max: bool) -> torch.Tensor:
     return out.index_add_(0, idx, vals[keep])
 
 
+_bound = None
+
+
+def _kernel():
+    """(library, its ``segment_reduce`` with argument types set, the
+    getter of the current stream's raw pointer by device index), built and
+    bound on first use."""
+    global _bound
+    if _bound is None:
+        lib = _build.library("segment_reduce")
+        fn = lib.segment_reduce
+        fn.argtypes, fn.restype = _SIG, ctypes.c_int
+        _bound = lib, fn, torch._C._cuda_getCurrentRawStream
+    return _bound
+
+
 def _launch(vals, ids, n_segments: int, is_max: bool) -> torch.Tensor:
     vals, ids = vals.contiguous(), ids.contiguous()
-    if is_max:
-        out = torch.full((n_segments,), INT32_MIN, dtype=torch.int32,
-                         device=vals.device)
-    else:
-        out = torch.zeros(n_segments, dtype=torch.int32, device=vals.device)
-    lib = _build.library("segment_reduce")
-    fn = lib.segment_reduce
-    fn.argtypes, fn.restype = _SIG, ctypes.c_int
+    out = vals.new_empty(n_segments)
+    if n_segments == 0:
+        return out                   # nothing to write: no launch
+    lib, fn, raw_stream = _kernel()
     rc = fn(vals.data_ptr(), ids.data_ptr(), vals.numel(), out.data_ptr(),
-            n_segments, int(is_max),
-            torch.cuda.current_stream(vals.device).cuda_stream)
+            n_segments, is_max, raw_stream(vals.get_device()))
     _build.check(lib, rc, "segment_reduce launch")
     count_launch("segment_max" if is_max else "segment_sum")
     return out
@@ -68,7 +83,7 @@ def _launch(vals, ids, n_segments: int, is_max: bool) -> torch.Tensor:
 
 def _segment_reduce(vals, ids, n_segments: int, is_max: bool):
     _check_args(vals, ids, n_segments)
-    if vals.device.type == "cuda":
+    if vals.is_cuda:
         return _launch(vals, ids, n_segments, is_max)
     if vals.device.type == "cpu":
         return _plain(vals, ids, n_segments, is_max)

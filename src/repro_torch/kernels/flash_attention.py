@@ -5,8 +5,10 @@ with f32 m/l/acc, causal and sliding-window masks from positions, GQA,
 masked scores at the finite ``NEG_INF = -1e30``, and the result
 ``acc / max(l, 1e-30)`` in q's dtype.  A CUDA tensor launches the kernel
 (``csrc/flash_attention.cu``: one block per (b*h, 64-row q tile), KV tiles
-looped inside, K/V head ``h // G`` read in place); a CPU tensor takes the
-plain version, the dense-softmax ``ref.flash_attention_ref``.
+looped inside, K/V head ``h // G`` read in place; f32 on the CUDA cores,
+bf16 on the tensor cores through wgmma, with P split into two bf16 terms
+for the P.V product); a CPU tensor takes the plain version, the
+dense-softmax ``ref.flash_attention_ref``.
 
 Sq and Skv must tile by the blocks, as in the reference (``ops.py``
 pads); the kernel itself takes any lengths.
@@ -40,7 +42,10 @@ def _launch(q, k, v, causal: bool, window: int,
         raise ValueError(f"head_dim {d} not among the kernel's {HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"f32 or bf16 expected on the card, got {q.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous, and 16-byte aligned for the bf16 kernel's cp.async
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty_like(q)
     lib = _build.load(_SRC)
     fn = lib.flash_attention

@@ -84,9 +84,15 @@ def test_replay_kernel_matches_plain_on_presets(cuda, name):
                          list(fixtures.CACHES.values()) + [(SPM_1M,)], cuda)
 
 
+# the shared-memory path (one cluster of 8 blocks) takes n_seg <= 57,344
+# and n <= 65,536 (csrc/segment_reduce.cu); the cases sit on both sides of
+# each limit
 @pytest.mark.parametrize("n,n_seg", [(0, 4), (1, 1), (1000, 37),
                                      (100_000, 5000),
-                                     (4_000_000, 70_000)])  # grid-strides
+                                     (4_000_000, 70_000),   # grid-strides
+                                     (20_000, 57_344), (20_000, 57_345),
+                                     (65_536, 7535), (65_537, 7535),
+                                     (0, 57_345)])
 def test_segment_kernels_match_plain(cuda, n, n_seg):
     gen = torch.Generator().manual_seed(n + n_seg)
     ids = torch.randint(-2, n_seg + 3, (n,), generator=gen,
@@ -97,6 +103,33 @@ def test_segment_kernels_match_plain(cuda, n, n_seg):
         got = op(vals.to(cuda), ids.to(cuda), n_seg)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), op(vals, ids, n_seg))
+
+
+@pytest.mark.parametrize("n,n_seg", [(1000, 64), (100_000, 64),
+                                     (1000, 60_000)])
+def test_segment_kernels_drop_all_out_of_range_ids(cuda, n, n_seg):
+    gen = torch.Generator().manual_seed(n)
+    ids = torch.cat([torch.randint(-2 ** 31, 0, (n // 2,), generator=gen,
+                                   dtype=torch.int32),
+                     torch.randint(n_seg, 2 ** 31 - 1, (n - n // 2,),
+                                   generator=gen, dtype=torch.int32)])
+    vals = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=gen,
+                         dtype=torch.int32)
+    for op, ident in ((segment_sum, 0), (segment_max, -2 ** 31)):
+        got = op(vals.to(cuda), ids.to(cuda), n_seg)
+        assert torch.equal(got.cpu(), op(vals, ids, n_seg))
+        assert torch.equal(got.cpu(), torch.full((n_seg,), ident,
+                                                 dtype=torch.int32))
+
+
+def test_segment_kernels_with_no_segments_launch_nothing(cuda):
+    vals = torch.arange(10, dtype=torch.int32, device=cuda)
+    before = accel.launch_counts()
+    for op in (segment_sum, segment_max):
+        got = op(vals, vals, 0)
+        assert got.shape == (0,) and got.dtype == torch.int32
+        assert got.device.type == "cuda"
+    assert accel.launch_counts() == before
 
 
 @pytest.mark.parametrize("name", ("NB", "KM", "LCS"))
@@ -168,6 +201,12 @@ BF16 = (2e-3, 1e-2)
     ((1, 4, 1, 1024, 1024, 256), 512, torch.float32, F32_FLASH),  # gemma3-1b
     ((1, 4, 1, 1024, 1024, 256), 0, torch.bfloat16, BF16),
     ((1, 2, 2, 100, 70, 32), 16, torch.float32, F32_FLASH),  # ragged quirk
+    # bf16 on the tensor cores
+    ((1, 4, 1, 1024, 1024, 256), 512, torch.bfloat16, BF16),  # gemma3-1b
+    ((2, 4, 2, 256, 256, 64), 32, torch.bfloat16, BF16),      # GQA, d=64
+    ((1, 8, 2, 256, 256, 128), 0, torch.bfloat16, BF16),      # GQA, d=128
+    ((2, 4, 1, 40, 40, 96), 0, torch.bfloat16, BF16),   # Sq < the q tile
+    ((1, 2, 2, 100, 70, 32), 16, torch.bfloat16, BF16),  # ragged quirk
 ])
 def test_flash_attention_kernel_matches_plain(cuda, shape, window, dtype,
                                               tol):
@@ -183,6 +222,36 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, window, dtype,
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol[0],
                                rtol=tol[1])
+
+
+@pytest.mark.parametrize("d", [16, 64, 192, 256])
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_attention_bf16_kernel_ragged_tiles(cuda, d, window):
+    """Sq = Skv = 136 with 8-row blocks: the kernel gets lengths that are no
+    multiple of its 64-row tiles, so its last q tile is partial and the
+    keys past Skv of its last KV tile are zero rows scored -inf."""
+    q = _normal((1, 4, 136, d), 14, torch.bfloat16)
+    k, v = (_normal((1, 2, 136, d), s, torch.bfloat16) for s in (15, 16))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), window=window, block_q=8,
+        block_k=8))
+    want = ops.flash_attention(q, k, v, window=window, block_q=8, block_k=8)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=BF16[0],
+                               rtol=BF16[1])
+
+
+def test_flash_attention_kernel_takes_unaligned_views(cuda):
+    """A view that starts off a 16-byte boundary is copied, not refused."""
+    q, k, v = (_normal((1, 2, 64, 32), s, torch.bfloat16) for s in (17, 18,
+                                                                    19))
+    qs, ks, vs = (torch.cat([t.flatten(), t.flatten()[:1]]).to(cuda)[1:]
+                  .view(t.shape) for t in (q, k, v))
+    assert qs.data_ptr() % 16
+    got = ops.flash_attention(qs, ks, vs, block_q=64, block_k=64)
+    want = ops.flash_attention(*(t.cpu() for t in (qs, ks, vs)), block_q=64,
+                               block_k=64)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=BF16[0],
+                               rtol=BF16[1])
 
 
 F32_MLSTM = (2e-3, 2e-3)
