@@ -19,17 +19,25 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   random ids with empty and out-of-range segments and on
                   n=0; the replay on the astar stream under the three
                   Fig. 14 geometries and the single-level SPM_1M;
+                  placement on the astar placement (also against
+                  ``place_sorted``, its formulation from the segment
+                  kernels and a sort) and on synthetic partitions with
+                  runs of up to 1,100 accesses under the three level sets;
                   then the times of kernel, plain version and the one
                   PyTorch call computing the same function, where one exists
                   (kernel and library timed in turns: kernel, library,
-                  library, kernel), the segment reductions' device-only
-                  time and kernels per call from ``torch.profiler``, and
-                  the replay's time on an empty and on an all-hit stream;
+                  library, kernel), the segment reductions' and placement's
+                  device-only time and kernels per call from
+                  ``torch.profiler``, where a placement call's time goes
+                  (device, call to lists, the join) for the kernel and for
+                  ``place_sorted``, and the replay's time on an empty and
+                  on an all-hit stream;
   4. main path -- the 17 trace fixtures priced on the card: one batched
                   replay per workload over the Fig. 14 geometries, Algorithm 1
-                  per Fig. 15 CiM level set, pricing per Fig. 16 technology:
-                  306 design points, each compared (==) with the reference's
-                  reports, with the launch counts of every kernel;
+                  per Fig. 15 CiM level set (placement: one launch per
+                  geometry), pricing per Fig. 16 technology: 306 design
+                  points, each compared (==) with the reference's reports,
+                  with the launch counts of every kernel;
   5. kernels path: a prefill's launches at published widths -- the CiM
                   modules of ``repro_torch.kernels`` through ``ops`` only:
                   the 26 attention layers of a gemma3-1b prefill (B=1,
@@ -41,8 +49,9 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   ``repro_torch.kernels.ref``, on CPU copies) at these
                   widths, at the shapes of tests/test_kernels.py and, for
                   mLSTM in bf16, at xlstm-125m's width on a short sequence;
-                  then timed beside its plain version, its bound and,
-                  where one exists, a PyTorch library call;
+                  then timed beside its plain version, its bound (the bulk
+                  ops with their share of it) and, where one exists, a
+                  PyTorch library call;
   6. result    -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
@@ -59,6 +68,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -67,6 +77,9 @@ PROBES = ROOT / "probes" / "latency.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM, dense tensor cores
+# the kernels of repro_torch.core.accel that the main path launches; the
+# segment reductions are held in phase 3 and by the tests
+MAIN_PATH_KERNELS = ("replay", "place")
 
 
 def fail(msg):
@@ -97,11 +110,14 @@ def turns_ms(kernel, library, reps):
     return (k1 + k2) / 2, (l1 + l2) / 2
 
 
-def profiled_device_ms(fn, reps):
+def profiled_device_ms(fn, reps, names=None):
     """(device-only ms per call, CUDA kernels per call) of ``fn`` from a
     ``torch.profiler`` trace of ``reps`` calls: the summed time of the
     kernels the card ran, without the host's dispatch.  (None, 0) when the
-    trace holds no device time."""
+    trace holds no device time.  ``names``, a dict, gets each device
+    event's name and count per call.  The trace can miss an event (a run
+    of 50 calls has read 0.98 kernels a call), so callers round a count
+    per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,6 +133,8 @@ def profiled_device_ms(fn, reps):
             t = getattr(e, "self_device_time_total", None)
             us += e.self_cuda_time_total if t is None else t
             n += e.count
+            if names is not None:
+                names[e.key] = e.count / reps
     if us <= 0:
         return None, 0
     return us / 1e3 / reps, n / reps
@@ -154,6 +172,60 @@ def host_ms(fn, reps):
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def placement_split(arrays_fn, lists_fn, join_fn, reps=20):
+    """Where a placement call's time goes: the device work of ``arrays_fn``
+    (from the profiler: kernels and copies per call, device ms per call),
+    the host clock from the call until the four lists are on the host
+    (``lists_fn``), and the host clock of the join with the protos alone
+    (``join_fn``)."""
+    names = {}
+    dev_ms, _ = profiled_device_ms(arrays_fn, reps, names)
+    copies = sum(n for k, n in names.items() if k.startswith("Mem"))
+    return dict(device_ms=dev_ms,
+                kernels_per_call=sum(names.values()) - copies,
+                copies_per_call=copies, lists_ms=host_ms(lists_fn, reps),
+                join_ms=host_ms(join_fn, reps), device_events=names)
+
+
+# a synthetic placement: runs the fixtures do not have
+SYNTHETIC_RUN = 1100
+
+
+def synthetic_placement(seed):
+    """(partition, CPU trace columns) with protos of no leaves, no loads (bank
+    None), no accesses, and runs of 1, 33 and SYNTHETIC_RUN accesses among
+    200 random ones, MEM and non-MEM accesses mixed in each run, lines
+    repeated, addresses up to 2**50."""
+    gen = torch.Generator().manual_seed(seed)
+    n_inst = 4096
+    lines = torch.randint(0, 2 ** 44, (64,), generator=gen)
+    addr = (lines[torch.randint(0, 64, (n_inst,), generator=gen)] * 64
+            + torch.randint(0, 64, (n_inst,), generator=gen))
+    cols = types.SimpleNamespace(
+        level=torch.randint(0, 4, (n_inst,), generator=gen,
+                            dtype=torch.int8),
+        addr=addr, bank=torch.randint(0, 16, (n_inst,), generator=gen,
+                                      dtype=torch.int16),
+        device=torch.device("cpu"), _struct={})
+
+    def seqs(k):
+        return torch.randint(0, n_inst, (k,), generator=gen).tolist()
+
+    def proto(n_leaf, n_load, n_store):
+        return types.SimpleNamespace(leaf_src=seqs(n_leaf),
+                                     load_seqs=seqs(n_load),
+                                     store_seqs=seqs(n_store))
+
+    protos = [proto(0, 3, 1), proto(5, 0, 4), proto(2, 0, 0),
+              proto(1, 1, 0), proto(40, 20, 13),
+              proto(70, SYNTHETIC_RUN - 300, 300)]
+    for _ in range(200):
+        k = int(torch.randint(0, 40, (1,), generator=gen))
+        protos.append(proto(int(torch.randint(0, 9, (1,), generator=gen)),
+                            k, int(torch.randint(0, 3, (1,), generator=gen))))
+    return types.SimpleNamespace(protos=protos), cols
 
 
 def bytes_bound_ms(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
@@ -383,15 +455,22 @@ def cim_kernels_phase(dev):
     bulk_bytes = n_bulk * bx.element_size()
     xc, yc, zc = bx.cpu(), by.cpu(), bz.cpu()
     variants = {}
+    # 200 calls a timing: the host's enqueue of the first call, which the
+    # card waits for once per timing, is then under 0.1% of the total
     for op, lib in (("and", torch.bitwise_and), ("add", torch.add)):
         ms, lib_ms = turns_ms(lambda: ops.cim_bulk(bx, by, op=op),
-                              lambda: lib(bx, by), 20)
+                              lambda: lib(bx, by), 200)
         plain = host_ms(lambda: ops.cim_bulk(xc, yc, op=op), 3)
         variants[op] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms)
         print(f"cim_bitwise {op} {BULK_SHAPE} int32: {ms:.4f} ms kernel, "
               f"{lib_ms:.4f} ms library, {plain:.2f} ms plain (host)",
               flush=True)
     bound, by_ = bytes_bound_ms(3 * bulk_bytes, n_bulk)
+    for op, v in variants.items():
+        v["bound_share"] = bound / v["ms"]
+        print(f"cim_bitwise {op}: {v['bound_share']:.3f} of the bytes bound "
+              f"{bound:.4f} ms (library {bound / v['library_ms']:.3f})",
+              flush=True)
     table["cim_bitwise"] = dict(
         source="src/repro_torch/kernels/csrc/cim_bitwise.cu",
         replaces="src/repro/kernels/cim_bitwise.py:36",
@@ -400,7 +479,7 @@ def cim_kernels_phase(dev):
         bound_by=by_,
         library_call="torch.bitwise_and", variants=variants,
         shape=f"{BULK_SHAPE} int32, op and")
-    ms = event_ms(lambda: ops.cim_fused(bx, by, bz), 20)
+    ms = event_ms(lambda: ops.cim_fused(bx, by, bz), 200)
     plain = host_ms(lambda: ops.cim_fused(xc, yc, zc), 3)
     bound, by_ = bytes_bound_ms(4 * bulk_bytes, 2 * n_bulk)
     table["cim_bitwise_fused"] = dict(
@@ -408,10 +487,11 @@ def cim_kernels_phase(dev):
         replaces="src/repro/kernels/cim_bitwise.py:64",
         twin="src/repro/kernels/cim_bitwise.py::cim_bitwise_fused",
         equal=True, tolerance=0, ms=ms, plain_ms=plain, library_ms=None,
-        bound_ms=bound, bound_by=by_,
+        bound_ms=bound, bound_by=by_, bound_share=bound / ms,
         shape=f"{BULK_SHAPE} int32, (x add y) xor z")
     print(f"cim_bitwise_fused {BULK_SHAPE} int32: {ms:.4f} ms kernel, "
-          f"{plain:.2f} ms plain (host)", flush=True)
+          f"{plain:.2f} ms plain (host); {bound / ms:.3f} of the bytes "
+          f"bound {bound:.4f} ms", flush=True)
 
     S, d = g["seq"], g["head_dim"]
     band = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
@@ -520,11 +600,14 @@ def main():
     from repro_torch.core.accel import _build
     from repro_torch.core.accel import replay as replay_mod
     from repro_torch.core.accel.pallas_ops import segment_max, segment_sum
-    from repro_torch.core.accel.place import _flat_arrays, place_candidates
+    from repro_torch.core.accel.place import (
+        _flat_arrays, place_arrays, place_candidates, place_sorted,
+        placement_lists)
     from repro_torch.core.accel.replay import replay_columns_batch
     from repro_torch.core.cache import SPM_1M
     from repro_torch.core.isa import OP_STORE
-    from repro_torch.core.offload import OffloadConfig, select_candidates
+    from repro_torch.core.offload import (OffloadConfig, _candidates,
+                                         select_candidates)
     from repro_torch.kernels import CSRC as CIM_CSRC
     from repro_torch.core.trace import attach_cache_results_batch
     from repro_torch.workloads import fixtures
@@ -660,9 +743,10 @@ def main():
     cfg = OffloadConfig(cim_levels=("L1", "L2"))
     select_candidates(tr.trace, cfg, device=dev)   # memoizes the partition
     part = tr.trace._struct["partitions"][cfg.partition_key()]
-    leaf_seq, leaf_pid, acc_seq, acc_pid, _ = _flat_arrays(part, tr.trace,
-                                                           cfg)
+    leaf_seq, leaf_off, acc_seq, _, _ = _flat_arrays(part, tr.trace, cfg)
     n_seg = len(part.protos)
+    leaf_pid = torch.repeat_interleave(
+        torch.arange(n_seg, dtype=torch.int32, device=dev), leaf_off.diff())
     depth = torch.clamp(tr.trace.level[leaf_seq].to(torch.int32) - 1, max=1)
     n_rand = 4096
     rand_ids = torch.randint(-3, 70, (n_rand,), generator=gen,
@@ -703,7 +787,7 @@ def main():
         dev_ms, per_call = profiled_device_ms(lambda: op(v, i, n_seg), 50)
         lib_dev_ms, lib_per_call = profiled_device_ms(
             lambda: lib_call(v, i64, n_seg), 50)
-        if dev_ms is not None and per_call != 1:
+        if dev_ms is not None and round(per_call) != 1:
             fail(f"{name} ran {per_call} kernels a call at n_segments="
                  f"{n_seg}, not one launch without a fill")
         n = v.numel()
@@ -750,43 +834,95 @@ def main():
               flush=True)
     detail["segment_threshold"] = threshold
 
-    # placement (K4), composed from the segment kernels and torch ops, on
-    # the same astar placement: on the card, and as its plain version on
-    # the CPU trace of the same workload
+    # placement (K4): the kernel against its plain version (on the CPU
+    # trace of the same workload) on the astar placement, and against the
+    # composition of segment kernels and a sort (place_sorted) on the card;
+    # then on a synthetic partition under each CiM level set
     tr_cpu = attach_cache_results_batch(
         fixtures.load_structural("astar", device="cpu"), [geos[0]],
         device="cpu")[0]
     select_candidates(tr_cpu.trace, cfg, device="cpu")
     part_cpu = tr_cpu.trace._struct["partitions"][cfg.partition_key()]
+    want = place_arrays(part_cpu, tr_cpu.trace, cfg)
+    if not torch.equal(place_arrays(part, tr.trace, cfg).cpu(), want):
+        fail("place differs from its plain version on the astar placement")
+    if not torch.equal(place_sorted(part, tr.trace, cfg).cpu(), want):
+        fail("place_sorted differs from the plain placement on astar")
+    if placement_lists(part, tr.trace, cfg) != want.tolist():
+        fail("placement_lists differs from the plain placement on astar")
     if place_candidates(part, tr.trace, cfg) != place_candidates(
             part_cpu, tr_cpu.trace, cfg):
         fail("placement on the card differs from its plain version")
-    place_ms = host_ms(lambda: place_candidates(part, tr.trace, cfg), 20)
-    place_plain = host_ms(
-        lambda: place_candidates(part_cpu, tr_cpu.trace, cfg), 5)
+    for levels in (("L1", "L2"), ("L1",), ("L2",)):
+        scfg = OffloadConfig(cim_levels=levels)
+        for seed in (1, 2):
+            spart, sct = synthetic_placement(seed)
+            sct_dev = types.SimpleNamespace(
+                **{c: getattr(sct, c).to(dev) for c in ("level", "addr",
+                                                        "bank")},
+                device=dev, _struct={})
+            if not torch.equal(place_arrays(spart, sct_dev, scfg).cpu(),
+                               place_arrays(spart, sct, scfg)):
+                fail(f"place differs from its plain version on the "
+                     f"synthetic partition {seed}, levels {levels}")
+    print(f"place: equal on the astar placement and on 2 synthetic "
+          f"partitions x 3 level sets (runs of up to "
+          f"{SYNTHETIC_RUN} accesses)", flush=True)
+
+    # its time: events over calls in a row (the host path's enqueue rate),
+    # the plain version, the whole call with the join; then where a call's
+    # time goes, for the kernel and for the composition (place_sorted)
+    ms = event_ms(lambda: place_arrays(part, tr.trace, cfg), 50)
+    plain = host_ms(lambda: place_arrays(part_cpu, tr_cpu.trace, cfg), 5)
+    lists = want.tolist()
+    join = lambda: _candidates(part.protos, *lists)
+    after = placement_split(lambda: place_arrays(part, tr.trace, cfg),
+                            lambda: placement_lists(part, tr.trace, cfg),
+                            join)
+    before = placement_split(lambda: place_sorted(part, tr.trace, cfg),
+                             lambda: place_sorted(part, tr.trace,
+                                                  cfg).tolist(), join)
+    call_ms = host_ms(lambda: place_candidates(part, tr.trace, cfg), 20)
+    for label, sp in (("place (one kernel)", after),
+                      ("place_sorted (segment kernels + sort)", before)):
+        print(f"{label} split: {sp['kernels_per_call']:g} kernels and "
+              f"{sp['copies_per_call']:g} copies a call on the device, "
+              f"device {ms_text(sp['device_ms'])}; call to lists on the "
+              f"host {sp['lists_ms']:.4f} ms; join (_candidates) "
+              f"{sp['join_ms']:.4f} ms (host clock)", flush=True)
+        print("  device events a call: " + json.dumps(
+            {k: round(v, 2) for k, v in sorted(
+                sp["device_events"].items(), key=lambda kv: -kv[1])}),
+              flush=True)
+    if after["device_ms"] is not None and \
+            round(after["kernels_per_call"]) != 1:
+        fail(f"place ran {after['kernels_per_call']} kernels a call, not "
+             f"one")
     # bytes: the flat arrays, the trace columns gathered through them, one
     # bank per proto, and four int32 results per proto
     tt = tr.trace
     n_leaf, n_acc_p = leaf_seq.numel(), acc_seq.numel()
     place_bytes = (
-        n_leaf * (leaf_seq.element_size() + leaf_pid.element_size()
-                  + tt.level.element_size())
-        + n_acc_p * (acc_seq.element_size() + acc_pid.element_size()
-                     + tt.level.element_size() + tt.addr.element_size())
-        + n_seg * (8 + tt.bank.element_size() + 4 * 4))
+        n_leaf * (leaf_seq.element_size() + tt.level.element_size())
+        + n_acc_p * (acc_seq.element_size() + tt.level.element_size()
+                     + tt.addr.element_size())
+        + n_seg * (3 * 8 + tt.bank.element_size() + 4 * 4))
     place_bound, place_by = bytes_bound_ms(place_bytes, n_leaf + n_acc_p)
-    composed = {"place_candidates": dict(
+    kernels["place"] = dict(
         twin="src/repro/core/accel/place.py::place_candidates_jax",
-        source="src/repro_torch/core/accel/place.py",
+        source="src/repro_torch/core/accel/csrc/place.cu",
         replaces="src/repro/core/accel/place.py:144", equal=True,
-        ms=place_ms, plain_ms=place_plain, bound_ms=place_bound,
-        bound_by=place_by, library_ms=None,
+        max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=place_bound,
+        bound_by=place_by, library_ms=None, device_ms=after["device_ms"],
+        kernels_per_call=after["kernels_per_call"],
+        lists_ms=after["lists_ms"], join_ms=after["join_ms"],
+        call_ms=call_ms, split_before=before, split_after=after,
         shape=f"{n_leaf} leaves, {n_acc_p} accesses, {n_seg} protos "
-              "(astar, 32K+256K, both levels)")}
-    print(f"place_candidates (K4, composed): equal; {place_ms:.4f} ms on "
-          f"the card (host clock, ends in a read), {place_plain:.3f} ms "
-          f"plain (host); bound {place_bound:.6f} ms ({place_by})",
-          flush=True)
+              "(astar, 32K+256K, both levels)")
+    print(f"place (K4): {ms:.4f} ms kernel (events, 50 calls), "
+          f"{plain:.3f} ms plain (host); whole call with the join "
+          f"{call_ms:.4f} ms (host clock); bound {place_bound:.6f} ms "
+          f"({place_by})", flush=True)
 
     # ------------------------------------------------------- 4. main path
     golden = fixtures.reference_reports()["workloads"]
@@ -821,17 +957,16 @@ def main():
     print("stage seconds: " + json.dumps(
         {k: round(v, 3) for k, v in stage.items()}), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
-    composed["place_candidates"]["launches"] = launches["segment_max"]
     detail.update(stage_seconds=stage, workload_seconds=per_workload,
                   main_path_wall_s=wall, launches=launches,
                   mismatches=[repr(m) for m in mismatches[:50]],
-                  kernels=kernels, composed=composed)
+                  kernels=kernels)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     if mismatches or n_rec != 306 or n_equal != n_rec:
         for m in mismatches[:10]:
             print("MISMATCH", m)
         fail(f"{len(mismatches)} mismatches against the reference reports")
-    for name in accel.KERNELS:
+    for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
 
@@ -866,7 +1001,8 @@ def main():
                           "bf16_share_of_tolerance", "library_call",
                           "device_ms", "kernels_per_call",
                           "library_device_ms", "library_kernels_per_call",
-                          "variants")
+                          "lists_ms", "join_ms", "call_ms", "split_before",
+                          "split_after", "bound_share", "variants")
                          if x in k}})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

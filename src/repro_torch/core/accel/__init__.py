@@ -6,9 +6,12 @@ switch.  A CUDA tensor goes through the kernel, a CPU tensor through the
 kernel's plain version, and nothing in between: a wrapper given a CUDA
 tensor launches its kernel or raises.
 
-  * :mod:`.pallas_ops` -- ``segment_sum`` / ``segment_max`` (CUDA atomics)
+  * :mod:`.pallas_ops` -- ``segment_sum`` / ``segment_max`` (shared-memory
+    and global atomics), which ``place.place_sorted`` composes; the
+    pipeline's placement does not launch them
   * :mod:`.replay` -- the batched LRU/MSHR/writeback cache replay
-  * :mod:`.place` -- placement, composed from the segment kernels
+  * :mod:`.place` -- placement (target level, moves, DRAM fills, bank per
+    proto), one launch a call
 
 Launch accounting takes the place of the reference's ``jit_compiles``:
 each wrapper adds one to its kernel's count where it launches it, so a run
@@ -19,7 +22,7 @@ from __future__ import annotations
 from typing import Dict
 
 #: the kernels this package launches
-KERNELS = ("segment_sum", "segment_max", "replay")
+KERNELS = ("segment_sum", "segment_max", "replay", "place")
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -7,6 +7,8 @@ build takes seconds.  Libraries land in ``build/repro_torch_kernels/`` at
 the root of the checkout (git-ignored), named by a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 All missing libraries are compiled in parallel, one ``nvcc`` per source.
+:func:`function` binds a library's C function once, for the wrappers'
+launches.
 
 Nothing here runs at import: ``nvcc`` is needed only when a kernel is
 first launched, or when :func:`build` is called.
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[4] / "build"
@@ -31,6 +33,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[pathlib.Path, ctypes.CDLL] = {}
+_fns: Dict[Tuple[pathlib.Path, str], Tuple[ctypes.CDLL, Any]] = {}
 #: compiler output per source of the last build (register/smem report)
 build_logs: Dict[str, str] = {}
 
@@ -97,9 +100,18 @@ def load(src: pathlib.Path) -> ctypes.CDLL:
         return lib
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of the kernel source ``csrc/<name>.cu``."""
-    return load(CSRC / f"{name}.cu")
+def function(src: pathlib.Path, name: str, argtypes) -> Tuple[ctypes.CDLL,
+                                                             Any]:
+    """(the loaded library of the ``.cu`` file ``src``, its C function
+    ``name`` with ``argtypes`` set and an ``int`` result), built, loaded
+    and bound on first use, so a launch pays one dict lookup for them."""
+    bound = _fns.get((src, name))
+    if bound is None:
+        lib = load(src)
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        bound = _fns[(src, name)] = (lib, fn)
+    return bound
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -52,30 +52,16 @@ def _plain(vals, ids, n_segments: int, is_max: bool) -> torch.Tensor:
     return out.index_add_(0, idx, vals[keep])
 
 
-_bound = None
-
-
-def _kernel():
-    """(library, its ``segment_reduce`` with argument types set, the
-    getter of the current stream's raw pointer by device index), built and
-    bound on first use."""
-    global _bound
-    if _bound is None:
-        lib = _build.library("segment_reduce")
-        fn = lib.segment_reduce
-        fn.argtypes, fn.restype = _SIG, ctypes.c_int
-        _bound = lib, fn, torch._C._cuda_getCurrentRawStream
-    return _bound
-
-
 def _launch(vals, ids, n_segments: int, is_max: bool) -> torch.Tensor:
     vals, ids = vals.contiguous(), ids.contiguous()
     out = vals.new_empty(n_segments)
     if n_segments == 0:
         return out                   # nothing to write: no launch
-    lib, fn, raw_stream = _kernel()
+    lib, fn = _build.function(_build.CSRC / "segment_reduce.cu",
+                              "segment_reduce", _SIG)
     rc = fn(vals.data_ptr(), ids.data_ptr(), vals.numel(), out.data_ptr(),
-            n_segments, is_max, raw_stream(vals.get_device()))
+            n_segments, is_max,
+            torch._C._cuda_getCurrentRawStream(vals.get_device()))
     _build.check(lib, rc, "segment_reduce launch")
     count_launch("segment_max" if is_max else "segment_sum")
     return out

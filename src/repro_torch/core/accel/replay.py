@@ -77,9 +77,8 @@ def _replay_cuda(addrs, is_writes, geometries) -> List[Columns]:
     lines = torch.div(addrs, LINE, rounding_mode="floor").contiguous()
     wr = is_writes.to(torch.uint8).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _build.library("replay")
-    fn = lib.replay_batch
-    fn.argtypes, fn.restype = _SIG, ctypes.c_int
+    lib, fn = _build.function(_build.CSRC / "replay.cu", "replay_batch",
+                              _SIG)
 
     results: List[Columns] = [None] * len(geometries)
     by_depth: Dict[int, List[int]] = {}

@@ -12,8 +12,8 @@ splits into two phases with different dependence keys:
   * **placement** (per geometry/level set) -- offload levels, cross-level
     moves, banks and surviving DRAM fills.  On a CUDA trace it runs on the
     card through :func:`repro_torch.core.accel.place.place_candidates`
-    (the segment-reduce kernels); on a CPU trace the same composition
-    runs over the segment ops' plain versions.
+    (one launch of the placement kernel); on a CPU trace through the
+    kernel's plain version.
 
 The single-pass branch (``require_same_bank=True`` or
 ``allow_cross_level=False``) and hand-built ``List[Inst]`` traces belong to
@@ -373,8 +373,8 @@ def _candidates(protos: List[_ProtoCandidate], target: List[int],
 def _place(part: SelectionPartition, ct: ColumnarTrace,
            cfg: OffloadConfig) -> List[Candidate]:
     """Placement: levels, moves, banks, DRAM fills per proto, on the
-    trace's device (``accel.place``: the segment kernels on a CUDA trace,
-    their plain versions on a CPU trace)."""
+    trace's device (``accel.place``: the placement kernel on a CUDA trace,
+    its plain version on a CPU trace)."""
     return place_candidates(part, ct, cfg)
 
 

@@ -2,9 +2,11 @@
 
 Twin of ``repro/kernels/cim_bitwise.py``.  The reference's Pallas kernels
 tile 2-D arrays in (256, 512) blocks for the TPU's VMEM; the port's kernel
-(``csrc/cim_bitwise.cu``) is one flat elementwise pass, so it takes
-same-shape int32 or uint32 tensors of any shape.  Add and sub wrap, as in
-the reference.
+(``csrc/cim_bitwise.cu``) is one flat elementwise pass, a 16-byte vector
+a thread, so it takes same-shape int32 or uint32 tensors of any shape.
+The library, the function with its argument types and the stream getter
+are bound once, so a launch is one allocation and one ctypes call.  Add
+and sub wrap, as in the reference.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version,
 ``ref.cim_bitwise_ref`` / ``ref.cim_bitwise_fused_ref``.
@@ -44,14 +46,14 @@ def _launch(arrays, ops, name: str) -> torch.Tensor:
     arrays = [a.contiguous() for a in arrays]
     x = arrays[0]
     out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out                   # nothing to compute: no launch
     z = arrays[2].data_ptr() if len(arrays) > 2 else None
-    lib = _build.load(_SRC)
-    fn = lib.cim_bitwise
-    fn.argtypes, fn.restype = _SIG, ctypes.c_int
+    lib, fn = _build.function(_SRC, "cim_bitwise", _SIG)
     rc = fn(x.data_ptr(), arrays[1].data_ptr(), z, out.data_ptr(),
             x.numel(), _OP_CODE[ops[0]],
             _OP_CODE[ops[1]] if len(ops) > 1 else -1,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(lib, rc, f"{name} launch")
     count_launch(name)
     return out

@@ -47,9 +47,7 @@ def _launch(q, k, v, causal: bool, window: int,
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _build.load(_SRC)
-    fn = lib.flash_attention
-    fn.argtypes, fn.restype = _SIG, ctypes.c_int
+    lib, fn = _build.function(_SRC, "flash_attention", _SIG)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             k.shape[1], Sq, k.shape[2], d, int(causal), int(window),
             sm_scale, int(q.dtype == torch.bfloat16),

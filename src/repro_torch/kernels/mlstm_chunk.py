@@ -40,9 +40,7 @@ def _launch(q, k, v, li, lf, K: int) -> torch.Tensor:
         raise TypeError(f"f32 or bf16 expected on the card, got {q.dtype}")
     q, k, v, li, lf = (x.contiguous() for x in (q, k, v, li, lf))
     out = torch.empty_like(q)
-    lib = _build.load(_SRC)
-    fn = lib.mlstm_chunkwise
-    fn.argtypes, fn.restype = _SIG, ctypes.c_int
+    lib, fn = _build.function(_SRC, "mlstm_chunkwise", _SIG)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
             lf.data_ptr(), out.data_ptr(), BH, S, dh, K,
             1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16),

@@ -6,23 +6,28 @@ runs on a machine that has only the port.  On a GPU machine::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The analysis kernels (replay, segment reductions) and the bulk CiM ops
-are integer, and compared exactly; attention and mLSTM are held to their
+The analysis kernels (replay, segment reductions, placement) and the bulk
+CiM ops are integer, and compared exactly; attention and mLSTM are held to their
 plain versions (``repro_torch.kernels.ref``) within the reference's own f32
 bounds (2e-5 for attention, 2e-3 for mLSTM).  A bf16 result is held to
 atol 2e-3 and rtol 1e-2: both sides compute in f32 from the same bf16
 inputs and round once, so they differ by at most about one bf16 ulp
 (2**-7 of the value) plus the f32 gap.
 """
+import types
+
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")  # CI images without torch skip the port
 
 from repro_torch.core import accel
+from repro_torch.core.accel import place
 from repro_torch.core.accel.pallas_ops import segment_max, segment_sum
 from repro_torch.core.accel.replay import replay_columns_batch
 from repro_torch.core.cache import CacheConfig, SPM_1M
 from repro_torch.core.isa import OP_STORE
+from repro_torch.core.offload import OffloadConfig, select_candidates
+from repro_torch.core.trace import attach_cache_results_batch
 from repro_torch import kernels
 from repro_torch.kernels import ops
 from repro_torch.workloads import fixtures
@@ -140,7 +145,106 @@ def test_design_points_on_the_card_equal_reference_reports(cuda, name):
         fixtures.load_structural(name, device=cuda), device=cuda)
     assert records == golden["records"]
     assert counters == golden["counters"]
-    assert all(v > 0 for v in accel.launch_counts().values())
+    launches = accel.launch_counts()
+    assert launches["replay"] > 0 and launches["place"] > 0
+    # placement is one kernel: the segment kernels are off the main path
+    assert launches["segment_sum"] == launches["segment_max"] == 0
+
+
+# ------------------------------------------------------------ placement
+LEVEL_SETS = (("L1", "L2"), ("L1",), ("L2",))
+
+
+def _synthetic_placement(seed, n_inst=4096, n_random=300):
+    """(partition, CPU trace columns): protos with no leaves, no loads, no
+    accesses, runs of 1, 33, 1,100 and 5,000 accesses and random ones;
+    lines repeat, levels mix none/L1/L2/MEM, addresses reach 2**50."""
+    rng = np.random.default_rng(seed)
+    lines = rng.integers(0, 2 ** 44, 64)
+    cols = types.SimpleNamespace(
+        level=torch.from_numpy(rng.integers(0, 4, n_inst).astype(np.int8)),
+        addr=torch.from_numpy(lines[rng.integers(0, 64, n_inst)] * 64
+                              + rng.integers(0, 64, n_inst)),
+        bank=torch.from_numpy(rng.integers(0, 16, n_inst).astype(np.int16)),
+        device=torch.device("cpu"), _struct={})
+
+    def proto(n_leaf, n_load, n_store):
+        return types.SimpleNamespace(
+            leaf_src=rng.integers(0, n_inst, n_leaf).tolist(),
+            load_seqs=rng.integers(0, n_inst, n_load).tolist(),
+            store_seqs=rng.integers(0, n_inst, n_store).tolist())
+
+    protos = [proto(0, 3, 1), proto(5, 0, 4), proto(2, 0, 0)]
+    protos += [proto(int(rng.integers(1, 70)), n - n // 3, n // 3)
+               for n in (1, 33, 1100, 5000)]
+    protos += [proto(int(rng.integers(0, 9)), int(rng.integers(0, 40)),
+                     int(rng.integers(0, 3))) for _ in range(n_random)]
+    return types.SimpleNamespace(protos=protos), cols
+
+
+def _on(cols, dev):
+    return types.SimpleNamespace(
+        **{c: getattr(cols, c).to(dev) for c in ("level", "addr", "bank")},
+        device=dev, _struct={})
+
+
+@pytest.mark.parametrize("levels", LEVEL_SETS)
+@pytest.mark.parametrize("seed", range(3))
+def test_place_kernel_matches_plain_on_synthetic_partitions(cuda, seed,
+                                                            levels):
+    part, cols = _synthetic_placement(seed)
+    cfg = OffloadConfig(cim_levels=levels)
+    before = accel.launch_counts()["place"]
+    got = place.place_arrays(part, _on(cols, cuda), cfg)
+    assert accel.launch_counts()["place"] == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    want = place.place_arrays(part, cols, cfg)
+    assert torch.equal(got.cpu(), want)
+    assert place.placement_lists(part, _on(cols, cuda), cfg) == \
+        want.tolist()
+
+
+@pytest.mark.parametrize("name", fixtures.WORKLOADS)
+def test_place_kernel_matches_plain_on_fixtures(cuda, name):
+    geos = list(fixtures.CACHES.values())
+    for tr, tr_dev in zip(*(attach_cache_results_batch(
+            fixtures.load_structural(name, device=d), geos, device=d)
+            for d in ("cpu", cuda))):
+        for levels in LEVEL_SETS:
+            cfg = OffloadConfig(cim_levels=levels)
+            select_candidates(tr.trace, cfg, device="cpu")
+            select_candidates(tr_dev.trace, cfg, device=cuda)
+            part = tr.trace._struct["partitions"][cfg.partition_key()]
+            part_dev = tr_dev.trace._struct["partitions"][cfg.partition_key()]
+            if not part.protos:
+                continue
+            want = place.place_arrays(part, tr.trace, cfg)
+            got = place.place_arrays(part_dev, tr_dev.trace, cfg)
+            assert torch.equal(got.cpu(), want), (name, levels)
+            assert place.place_candidates(part_dev, tr_dev.trace, cfg) == \
+                place.place_candidates(part, tr.trace, cfg)
+
+
+def test_one_placement_is_one_kernel_launch(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    part, cols = _synthetic_placement(0)
+    ct, cfg = _on(cols, cuda), OffloadConfig()
+    place.place_arrays(part, ct, cfg)                  # builds, memoizes
+    torch.cuda.synchronize()
+    calls = 20
+    before = accel.launch_counts()["place"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            place.place_arrays(part, ct, cfg)
+        torch.cuda.synchronize()
+    assert accel.launch_counts()["place"] == before + calls
+    events = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
+    # the place kernel and nothing else; the trace may miss an event
+    assert len(events) == 1 and "place_kernel" in next(iter(events)), events
+    assert calls - 2 <= sum(events.values()) <= calls
 
 
 # ------------------------------------------------- repro_torch.kernels
@@ -182,6 +286,64 @@ def test_cim_fused_kernel_matches_plain_unaligned(cuda, op1, op2):
     want = ops.cim_fused(*(a.flatten()[1:] for a in (x, y, z)), op1=op1,
                          op2=op2)
     assert torch.equal(got.cpu(), want)
+
+
+# cim_bitwise.cu: a block of THREADS threads takes THREADS uint4 vectors
+# (or single elements on unaligned views); the card holds two an SM
+THREADS = 1024
+TILE = THREADS * 4               # elements
+
+
+def _wave_sizes(waves):
+    """Element counts around ``waves`` full waves of the bulk kernel's
+    grid (two blocks an SM), and around one block: -1, +1 and one vector
+    short."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sorted({n for edge in (waves * sms * 2 * TILE, TILE)
+                   for n in (edge - 4, edge - 1, edge, edge + 1)})
+
+
+@pytest.mark.parametrize("waves", range(1, 5))
+def test_cim_kernels_match_plain_at_wave_edges(cuda, waves):
+    for n in _wave_sizes(waves):
+        x, y, z = (_ints((n,), torch.int32, s) for s in (20, 21, 22))
+        for op in ("and", "sub"):
+            got = ops.cim_bulk(x.to(cuda), y.to(cuda), op=op)
+            assert torch.equal(got.cpu(), ops.cim_bulk(x, y, op=op)), (n, op)
+        got = ops.cim_fused(x.to(cuda), y.to(cuda), z.to(cuda))
+        assert torch.equal(got.cpu(), ops.cim_fused(x, y, z)), n
+
+
+# 1 to 5: the last elements alone; TILE - 4 and +- 1: one vector or one
+# element short of a block, and one element past it
+@pytest.mark.parametrize("n", [1, 3, 4, 5, TILE - 4, TILE - 1, TILE + 1,
+                               100_003])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32])
+def test_cim_kernels_match_plain_at_small_and_unaligned_sizes(cuda, n,
+                                                              dtype):
+    x, y, z = (_ints((n + 1,), dtype, s) for s in (23, 24, 25))
+    xd, yd, zd = (a.to(cuda) for a in (x, y, z))
+    for lo in (0, 1):            # 1: views off a 16-byte boundary
+        got = _launched("cim_bitwise", lambda: ops.cim_bulk(
+            xd[lo:lo + n], yd[lo:lo + n], op="add"))
+        want = ops.cim_bulk(x[lo:lo + n], y[lo:lo + n], op="add")
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        got = _launched("cim_bitwise_fused", lambda: ops.cim_fused(
+            xd[lo:lo + n], yd[lo:lo + n], zd[lo:lo + n], op1="xor",
+            op2="sub"))
+        want = ops.cim_fused(x[lo:lo + n], y[lo:lo + n], z[lo:lo + n],
+                             op1="xor", op2="sub")
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+def test_cim_kernels_with_no_elements_launch_nothing(cuda):
+    x = torch.zeros((0, 5), dtype=torch.int32, device=cuda)
+    before = kernels.launch_counts()
+    assert ops.cim_bulk(x, x).shape == (0, 5)
+    assert ops.cim_fused(x, x, x).shape == (0, 5)
+    assert kernels.launch_counts() == before
 
 
 def _normal(shape, seed, dtype=torch.float32):

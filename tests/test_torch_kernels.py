@@ -7,9 +7,10 @@ the CUDA kernels must reproduce -- to the reference's kernels:
   * ``segment_sum`` / ``segment_max`` against the reference's Pallas
     kernels run in interpret mode (as ``tests/test_accel.py`` runs them),
     with empty segments, out-of-range ids and ``n = 0``;
-  * placement (``place_candidates``, composed from the segment ops, as
-    ``offload._place`` calls it) against ``place_candidates_jax`` with the
-    Pallas segment kernels forced on, and against the numpy ``_place``;
+  * placement (``place_candidates``, the placement kernel's plain version,
+    as ``offload._place`` calls it) against ``place_candidates_jax`` with
+    the Pallas segment kernels forced on, and against the numpy ``_place``
+    (more cases in ``tests/test_torch_place.py``);
   * the replay (``CacheHierarchy.replay`` + ``counters``, through
     ``replay_columns_batch``) against the reference's batched jax replay
     and its OrderedDict machine, on fuzzed streams.
