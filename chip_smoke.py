@@ -9,8 +9,8 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
   2. build     -- compiles every ``csrc/*.cu`` of ``repro_torch.core.accel``
                   and of ``repro_torch.kernels`` and the latency probes of
                   ``probes/latency.cu`` with nvcc, in parallel, and prints
-                  the registers and spills of the attention and segment
-                  kernels;
+                  the registers, stack frames and spills of the attention,
+                  segment, replay and mLSTM kernels;
   3. kernels   -- one L2 and one shared-memory round trip, the units of
                   the replay's latency floor; each kernel against its
                   plain version (plain on CPU
@@ -31,13 +31,17 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   ``torch.profiler``, where a placement call's time goes
                   (device, call to lists, the join) for the kernel and for
                   ``place_sorted``, and the replay's time on an empty and
-                  on an all-hit stream;
+                  on an all-hit stream, in CUDA events and on the device
+                  alone (``torch.profiler``), its ns per access on the
+                  all-hit and astar streams, and its latency floors;
   4. main path -- the 17 trace fixtures priced on the card: one batched
                   replay per workload over the Fig. 14 geometries, Algorithm 1
                   per Fig. 15 CiM level set (placement: one launch per
                   geometry), pricing per Fig. 16 technology: 306 design
                   points, each compared (==) with the reference's reports,
-                  with the launch counts of every kernel;
+                  with the launch counts of every kernel; then the same
+                  sweep again under ``torch.profiler``: each kernel's
+                  summed device time and the device's busy share;
   5. kernels path: a prefill's launches at published widths -- the CiM
                   modules of ``repro_torch.kernels`` through ``ops`` only:
                   the 26 attention layers of a gemma3-1b prefill (B=1,
@@ -51,7 +55,9 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   mLSTM in bf16, at xlstm-125m's width on a short sequence;
                   then timed beside its plain version, its bound (the bulk
                   ops with their share of it) and, where one exists, a
-                  PyTorch library call;
+                  PyTorch library call; the mLSTM also beside the f32 and
+                  one-SM-per-chain floors, with its four kernels' device
+                  time;
   6. result    -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
@@ -76,6 +82,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PROBES = ROOT / "probes" / "latency.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, outside the tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM, dense tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM, dense tensor cores
 # the kernels of repro_torch.core.accel that the main path launches; the
 # segment reductions are held in phase 3 and by the tests
@@ -140,9 +147,32 @@ def profiled_device_ms(fn, reps, names=None):
     return us / 1e3 / reps, n / reps
 
 
+def device_ms_by_kernel(fn):
+    """({device event name: (summed device ms, count)}, host wall seconds)
+    of one call of ``fn`` traced by ``torch.profiler`` (CUDA activity
+    only); the dict is empty when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if t is None else t
+            if us > 0:
+                out[e.key] = (us / 1e3, e.count)
+    return out, wall
+
+
 def ptxas_summary(log):
     """One line per kernel of an ``nvcc -Xptxas -v`` log: the entry's
-    name, its registers and its spill bytes."""
+    name, its registers, its stack frame and its spill bytes."""
     rows, entry, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -153,7 +183,7 @@ def ptxas_summary(log):
                 entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
                                       else "")
         elif entry and "spill stores" in line:
-            spill = ", ".join(x.strip() for x in line.split(",")[1:])
+            spill = ", ".join(x.strip() for x in line.split(","))
         elif entry and "Used" in line and "registers" in line:
             regs = line.split("Used")[1].split(",")[0].strip()
             rows.append(f"{entry}: {regs}; {spill}")
@@ -554,7 +584,9 @@ def cim_kernels_phase(dev):
               f"Hkv={g['kv_heads']}, S={S}, d={d}; f32 global layer")
 
     a = mlstm_in[0]
-    ms = event_ms(lambda: ops.mlstm_chunkwise(*a, chunk=x["chunk"]), 5)
+    # 20 calls: the host's enqueue of the first, which the card waits for
+    # once per timing, stays a small part of the mean
+    ms = event_ms(lambda: ops.mlstm_chunkwise(*a, chunk=x["chunk"]), 20)
     a_cpu = [t.cpu() for t in a]
     plain = host_ms(lambda: ops.mlstm_chunkwise(*a_cpu, chunk=x["chunk"]), 1)
     K, dh, S = x["chunk"], x["head_dim"], x["seq"]
@@ -565,7 +597,12 @@ def cim_kernels_phase(dev):
     n_ops = chunk_flop * chains * (S // K)
     n_bytes = sum(t.numel() * t.element_size() for t in a) \
         + a[0].numel() * a[0].element_size()
-    bound, by_ = bytes_bound_ms(n_bytes, n_ops)
+    # the kernel runs the products as 3xTF32: three TF32 products each on
+    # the tensor cores; the same flops in f32 outside them, and one SM per
+    # chain at that rate (the floor of a one-block-per-chain design), are
+    # printed beside it
+    bound, by_ = bytes_bound_ms(n_bytes, 3 * n_ops, TF32_OPS_PER_S)
+    f32_bound, _ = bytes_bound_ms(n_bytes, n_ops)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chain_floor = chunk_flop * (S // K) / (FP32_OPS_PER_S / sms) * 1e3
     prefill = event_ms(lambda: [ops.mlstm_chunkwise(*b, chunk=K)
@@ -578,14 +615,24 @@ def cim_kernels_phase(dev):
         plain_ms=plain, library_ms=None,
         bf16_tolerance=MLSTM_TOL[torch.bfloat16],
         bf16_max_abs_err=err["mlstm_chunkwise bf16"],
-        bound_ms=bound, bound_by=by_, chain_bound_ms=chain_floor,
+        bound_ms=bound, bound_by=by_, f32_bound_ms=f32_bound,
+        chain_bound_ms=chain_floor,
         launches_per_prefill=x["blocks"], prefill_ms=prefill,
         shape=f"xlstm-125m: B={x['batch']}, H={x['heads']}, S={S}, "
               f"dh={dh}, chunk {K}, f32")
+    mlstm_events, _ = device_ms_by_kernel(
+        lambda: ops.mlstm_chunkwise(*a, chunk=x["chunk"]))
+    table["mlstm_chunkwise"]["device_events"] = {
+        k: dict(ms=v[0], count=v[1]) for k, v in mlstm_events.items()}
     print(f"mlstm_chunkwise: {ms:.3f} ms kernel, {plain:.1f} ms plain "
-          f"(host); bound {bound:.4f} ms ({by_}), one-SM-per-chain floor "
-          f"{chain_floor:.4f} ms; prefill ({x['blocks']} launches) "
-          f"{prefill:.3f} ms", flush=True)
+          f"(host); bound {bound:.4f} ms ({by_}, 3xTF32 on the tensor "
+          f"cores; {bound / ms:.3f} of it), the same flops in f32 outside "
+          f"the tensor cores {f32_bound:.4f} ms ({f32_bound / ms:.3f} of "
+          f"it), one-SM-per-chain floor {chain_floor:.4f} ms "
+          f"({ms / chain_floor:.3f}x); prefill ({x['blocks']} launches) "
+          f"{prefill:.3f} ms; device events of one call (profiler) "
+          + json.dumps({k[:50]: round(v[0], 4)
+                        for k, v in mlstm_events.items()}), flush=True)
     for name in kernels.KERNELS:
         table[name]["max_abs_err"] = err[name]
     return table, launches, path_s
@@ -633,9 +680,12 @@ def main():
                                *sorted(CIM_CSRC.glob("*.cu")), PROBES])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(per_source)}", flush=True)
-    for src in ("flash_attention", "segment_reduce"):
+    for src in ("flash_attention", "segment_reduce", "replay", "mlstm_chunk"):
         for row in ptxas_summary(_build.build_logs.get(src, "")):
-            print(f"  ptxas {src}: {row}", flush=True)
+            # mLSTM: the xlstm-125m instantiations (dh = 192) and the
+            # untemplated kernels
+            if src != "mlstm_chunk" or "192" in row or "<" not in row:
+                print(f"  ptxas {src}: {row}", flush=True)
     detail["build_s"] = build_s
     detail["build_logs"] = dict(_build.build_logs)
 
@@ -702,18 +752,24 @@ def main():
     rb, rb_by = bytes_bound_ms(
         n_acc * (addrs.element_size() + is_w.element_size())
         + len(geos) * n_acc * out_bytes, 0)
-    # latency floor: the geometries run side by side, one block each; in
-    # each, every access probes the first level (shared memory when the
-    # wrapper keeps it there, else the card's L2) and every first-level
-    # miss probes the second level, in the card's L2
-    l1_smem = (max(g[0].n_sets * g[0].assoc for g in geos)
-               * replay_mod._WAY_BYTES <= replay_mod._SMEM_BYTES)
-    floor = {}
+    # latency floors: the geometries run side by side, one block each.  A
+    # walk of one access a step probes the first level (shared memory when
+    # the wrapper keeps it there, else the card's L2) once per access, and
+    # the second level (the card's L2) once per first-level miss: the
+    # serial floor.  The kernel probes a step of replay_mod.STEP accesses
+    # at once and again after each miss: its chain is one first-level
+    # probe per step and per miss, plus the misses' second-level probes
+    l1_smem = replay_mod.first_level_shared(geos, replay_mod.word_bytes(
+        n_acc, int(addrs.max()) // 64, geos))
+    l1_ns = smem_ns if l1_smem else l2_ns
+    floor, chunk_floor = {}, {}
     for (key, g), r in zip(fixtures.CACHES.items(), got):
         l1_misses = r[4][f"{g[0].name}_misses"]
-        floor[key] = (n_acc * (smem_ns if l1_smem else l2_ns)
-                      + l1_misses * l2_ns) * 1e-6
+        floor[key] = (n_acc * l1_ns + l1_misses * l2_ns) * 1e-6
+        chunk_floor[key] = ((-(-n_acc // replay_mod.STEP) + l1_misses) * l1_ns
+                            + l1_misses * l2_ns) * 1e-6
     lat_ms = max(floor.values())
+    chunk_ms = max(chunk_floor.values())
     # fixed cost (state clearing, launch, wrapper) and the hit path alone
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
     empty_ms = event_ms(lambda: replay_columns_batch(
@@ -722,6 +778,25 @@ def main():
     reads = torch.zeros_like(is_w)
     hit_ms = event_ms(lambda: replay_columns_batch(one_line, reads, geos), 5)
     hit_ns = (hit_ms - empty_ms) * 1e6 / n_acc
+    astar_ns = (ms - empty_ms) * 1e6 / n_acc
+    # the same three streams on the device alone (profiler: the replay
+    # kernels and any memset; no host work of the wrapper)
+    replay_dev = {}
+    for key, a, w in (("astar", addrs, is_w), ("all-hit", one_line, reads),
+                      ("empty", empty, empty.to(torch.bool))):
+        names = {}
+        replay_dev[key] = dict(zip(("device_ms", "device_events_per_call"),
+                                   profiled_device_ms(
+            lambda: replay_columns_batch(a, w, geos), 5, names)),
+                               events=names)
+    dev_hit_ns = (replay_dev["all-hit"]["device_ms"]
+                  - replay_dev["empty"]["device_ms"]) * 1e6 / n_acc \
+        if replay_dev["empty"]["device_ms"] is not None else None
+    dev_astar_ns = (replay_dev["astar"]["device_ms"]
+                    - replay_dev["empty"]["device_ms"]) * 1e6 / n_acc \
+        if replay_dev["empty"]["device_ms"] is not None else None
+    l1_misses = {key: r[4][f"{g[0].name}_misses"]
+                 for (key, g), r in zip(fixtures.CACHES.items(), got)}
     kernels["replay"] = dict(
         twin="src/repro/core/accel/replay.py::replay_columns_batch",
         source="src/repro_torch/core/accel/csrc/replay.cu",
@@ -730,12 +805,26 @@ def main():
         bound_ms=rb, bound_by=rb_by, library_ms=None,
         shape=f"{n_acc} accesses x {len(geos)} geometries (one launch)",
         latency_bound_ms=lat_ms, latency_bound_per_geometry_ms=floor,
+        chunk_latency_bound_ms=chunk_ms,
         l2_round_trip_ns=l2_ns, smem_round_trip_ns=smem_ns,
-        empty_stream_ms=empty_ms, all_hit_ns_per_access=hit_ns)
+        empty_stream_ms=empty_ms, all_hit_ns_per_access=hit_ns,
+        astar_ns_per_access=astar_ns, device=replay_dev,
+        device_all_hit_ns_per_access=dev_hit_ns,
+        device_astar_ns_per_access=dev_astar_ns, l1_misses=l1_misses)
     print(f"replay: equal on {len(geos) + 1} geometries; {ms:.3f} ms "
-          f"kernel, {plain:.1f} ms plain (host); latency floor "
-          f"{lat_ms:.3f} ms; empty stream {empty_ms:.3f} ms; all-hit "
-          f"stream {hit_ns:.1f} ns per access", flush=True)
+          f"kernel, {plain:.1f} ms plain (host); latency floor of a "
+          f"serial walk {lat_ms:.3f} ms ({ms / lat_ms:.2f}x), of the "
+          f"kernel's stepped chain {chunk_ms:.4f} ms ({ms / chunk_ms:.1f}x);"
+          f" empty stream "
+          f"{empty_ms:.4f} ms; ns per access (events, less the empty "
+          f"stream): all-hit {hit_ns:.1f}, astar {astar_ns:.1f}; first-"
+          f"level misses {json.dumps(l1_misses)}", flush=True)
+    print("replay device only (profiler): " + "; ".join(
+        f"{k} {ms_text(v['device_ms'])} in "
+        f"{v['device_events_per_call']:g} event(s) a call"
+        for k, v in replay_dev.items())
+          + f"; ns per access all-hit {dev_hit_ns}, astar {dev_astar_ns}",
+          flush=True)
 
     # segment reductions at the main path's largest shape: astar's
     # placement under 32K+256K / both
@@ -970,6 +1059,36 @@ def main():
         if launches[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
 
+    # the same sweep again under torch.profiler: summed device time per
+    # kernel, and the device's busy share of the traced sweep's wall time
+    def sweep():
+        for name in fixtures.WORKLOADS:
+            fixtures.price_design_points(
+                fixtures.load_structural(name, device=dev), device=dev)
+
+    events, traced_wall = device_ms_by_kernel(sweep)
+    busy = sum(ms for ms, _ in events.values())
+    per_kernel = {}
+    for name in MAIN_PATH_KERNELS:
+        hits = [(ms, n) for key, (ms, n) in events.items()
+                if f"{name}_kernel" in key]
+        per_kernel[name] = dict(device_ms=sum(ms for ms, _ in hits),
+                                launches=sum(n for _, n in hits))
+    top = sorted(events.items(), key=lambda kv: -kv[1][0])[:8]
+    detail["main_path_profile"] = dict(
+        traced_wall_s=traced_wall, device_busy_ms=busy,
+        per_kernel=per_kernel,
+        events={k: dict(ms=v[0], count=v[1]) for k, v in events.items()})
+    print(f"main path under the profiler: {traced_wall:.2f} s wall, device "
+          f"busy {busy:.3f} ms ({busy / 1e3 / traced_wall:.4f} of the wall; "
+          f"idle share {1 - busy / 1e3 / traced_wall:.4f}); per kernel "
+          + json.dumps({k: {x: round(y, 4) for x, y in v.items()}
+                        for k, v in per_kernel.items()})
+          + "; largest device events " + json.dumps(
+              {k[:60]: [round(v[0], 4), v[1]] for k, v in top}), flush=True)
+    kernels["replay"]["main_path_device_ms"] = per_kernel["replay"]
+    kernels["place"]["main_path_device_ms"] = per_kernel["place"]
+
     # ---------------------------------------------------- 5. kernels path
     cim_table, cim_launches, cim_path_s = cim_kernels_phase(dev)
     kernels.update(cim_table)
@@ -994,9 +1113,14 @@ def main():
                       "library_ms": k["library_ms"], "shape": k["shape"],
                       **{x: k[x] for x in (
                           "latency_bound_ms", "latency_bound_per_geometry_ms",
+                          "chunk_latency_bound_ms",
                           "l2_round_trip_ns", "smem_round_trip_ns",
                           "empty_stream_ms", "all_hit_ns_per_access",
-                          "chain_bound_ms", "launches_per_prefill",
+                          "astar_ns_per_access", "device_all_hit_ns_per_access",
+                          "device_astar_ns_per_access", "l1_misses",
+                          "main_path_device_ms",
+                          "f32_bound_ms", "chain_bound_ms",
+                          "launches_per_prefill",
                           "prefill_ms", "bf16_tolerance", "bf16_max_abs_err",
                           "bf16_share_of_tolerance", "library_call",
                           "device_ms", "kernels_per_call",

@@ -89,6 +89,70 @@ def test_replay_kernel_matches_plain_on_presets(cuda, name):
                          list(fixtures.CACHES.values()) + [(SPM_1M,)], cuda)
 
 
+def test_replay_kernel_takes_the_64_bit_path(cuda):
+    """Lines beyond 32-bit set-local tags take the int64 instantiation."""
+    from repro_torch.core.accel.replay import word_bytes
+    rng = np.random.default_rng(3)
+    pool = np.array([0, 1, 2, 2 ** 44, 2 ** 44 + 1, 2 ** 50 // 64],
+                    dtype=np.int64)
+    lines = pool[rng.integers(0, len(pool), 500)]
+    addrs = torch.from_numpy(lines * 64 + rng.integers(0, 64, 500))
+    wr = torch.from_numpy(rng.random(500) < 0.4)
+    geos = list(GEOMETRIES) + list(fixtures.CACHES.values())
+    assert word_bytes(500, int(lines.max()), geos) == 8
+    _assert_replay_equal(addrs, wr, geos, cuda)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_replay_kernel_with_the_first_level_in_global_memory(cuda, wide):
+    """A first level too large for shared memory (4 MB, and SPM_1M in
+    64-bit words) lives in the global scratch, in 32- and 64-bit words."""
+    from repro_torch.core.accel.replay import first_level_shared, word_bytes
+    big = CacheConfig("L1", 4 * 1024 * 1024, 8, banks=4, mshrs=8)
+    geos = [(big,), (big, _g(64, 8, 4, 8, "L2")), (SPM_1M,)]
+    ct = fixtures.load_structural("KM", device="cpu").columns
+    mem = ct.mem_mask
+    addrs = ct.addr[mem] + (2 ** 52 if wide else 0)
+    word = word_bytes(addrs.numel(), int(addrs.max()) // 64, geos)
+    assert word == (8 if wide else 4)
+    assert not first_level_shared(geos, word)
+    _assert_replay_equal(addrs, ct.op[mem] == OP_STORE, geos, cuda)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 63, 64, 65, 513])
+def test_replay_kernel_at_chunk_edges(cuda, n):
+    rng = np.random.default_rng(n)
+    addrs = torch.from_numpy(rng.integers(0, 12 * 64, n).astype(np.int64))
+    wr = torch.from_numpy(rng.random(n) < 0.5)
+    _assert_replay_equal(addrs, wr, list(GEOMETRIES), cuda)
+
+
+@pytest.mark.parametrize("kind", ["one repeated line", "one set"])
+def test_replay_kernel_on_degenerate_streams(cuda, kind):
+    n = 1000
+    rng = np.random.default_rng(7)
+    if kind == "one repeated line":
+        addrs = np.full(n, 5 * 64 + 8, dtype=np.int64)
+    else:                 # every line in set 0 of each power-of-two level
+        addrs = (rng.integers(0, 40, n) * 64 * 4096).astype(np.int64)
+    wr = torch.from_numpy(rng.random(n) < 0.3)
+    _assert_replay_equal(torch.from_numpy(addrs), wr,
+                         list(GEOMETRIES) + list(fixtures.CACHES.values()),
+                         cuda)
+
+
+@pytest.mark.parametrize("name", fixtures.WORKLOADS)
+def test_replay_kernel_matches_plain_on_every_fixture(cuda, name):
+    """Depth 2 (the Fig. 14 geometries) and depth 1 (SPM_1M, and a 32 KB
+    first level alone) in one call: one launch per depth."""
+    ct = fixtures.load_structural(name, device="cpu").columns
+    mem = ct.mem_mask
+    _assert_replay_equal(ct.addr[mem], ct.op[mem] == OP_STORE,
+                         list(fixtures.CACHES.values())
+                         + [(SPM_1M,), (fixtures.CACHES["32K+256K"][0],)],
+                         cuda)
+
+
 # the shared-memory path (one cluster of 8 blocks) takes n_seg <= 57,344
 # and n <= 65,536 (csrc/segment_reduce.cu); the cases sit on both sides of
 # each limit
@@ -442,6 +506,37 @@ def test_mlstm_kernel_matches_plain(cuda, shape, dtype, tol):
     assert got.dtype == dtype
     torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol[0],
                                rtol=tol[1])
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    # (B, H, S, dh, chunk)
+    ((1, 1, 256, 64, 64), torch.float32, F32_MLSTM),      # B*H = 1
+    ((3, 48, 64, 16, 32), torch.float32, F32_MLSTM),      # B*H = 144 > 132
+    ((2, 4, 128, 192, 128), torch.float32, F32_MLSTM),    # one chunk
+    ((1, 2, 100, 96, 128), torch.float32, F32_MLSTM),     # one chunk of 100
+    ((1, 2, 200, 32, 128), torch.float32, F32_MLSTM),     # ragged: 128 -> 8
+    ((2, 2, 256, 128, 64), torch.bfloat16, BF16),
+    ((1, 4, 192, 192, 64), torch.bfloat16, BF16),
+])
+def test_mlstm_split_kernel_matches_plain(cuda, shape, dtype, tol):
+    """The kernel split across chunks at chain counts and chunk shapes on
+    both sides of the card's 132 SMs."""
+    B, H, S, dh, chunk = shape
+    args = _mlstm_args(B, H, S, dh, dtype)
+    got = _launched("mlstm_chunkwise", lambda: ops.mlstm_chunkwise(
+        *(a.to(cuda) for a in args), chunk=chunk))
+    want = ops.mlstm_chunkwise(*args, chunk=chunk)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
+def test_mlstm_kernel_chunk_invariance_at_xlstm_width(cuda):
+    args = [a.to(cuda) for a in _mlstm_args(1, 4, 256, 192)]
+    o32 = ops.mlstm_chunkwise(*args, chunk=32)
+    o128 = ops.mlstm_chunkwise(*args, chunk=128)
+    torch.testing.assert_close(o32, o128, atol=F32_MLSTM[0],
+                               rtol=F32_MLSTM[1])
 
 
 def test_mlstm_kernel_chunk_invariance(cuda):

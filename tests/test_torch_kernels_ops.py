@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch")  # CI images without torch skip the port
 
+from repro.kernels import mlstm_chunk as ref_mc
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.models.attention import flash_attention_jnp
@@ -297,3 +298,83 @@ def test_plain_versions_launch_nothing():
     ops.cim_fused(x, x, x)
     assert set(kernels.launch_counts()) == set(kernels.KERNELS)
     assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+def _mlstm_chunk_parallel(q, k, v, i_raw, f_raw, chunk):
+    """The CUDA kernel's decomposition in torch f32: (0) the gates and the
+    stabilizer chain over the chunks in order; (1) each chunk's own state
+    update, dC = sum_j e^(g_j - max g) k_j v_j^T and dn, all chunks at
+    once; (2) a scan of the state, C_k = w_prev C_{k-1} + e^(F + max g -
+    m_k) dC_k, keeping each chunk's start state; (3) every chunk's
+    outputs at once from its start state, with the inter-chunk weight
+    folded into q."""
+    B, H, S, dh = q.shape
+    K = min(chunk, S)
+    while S % K:
+        K //= 2
+    nc, scale = S // K, 1.0 / math.sqrt(dh)
+    li, lf = (x.reshape(B, H, nc, K) for x in ref.log_gates(i_raw, f_raw))
+    qf, kf, vf = (x.float().reshape(B, H, nc, K, dh) for x in (q, k, v))
+    # (0) gates: b = cumsum(lf) in order, the chain of m over the chunks
+    b = torch.cumsum(lf, -1)
+    g = li - b
+    F, gmax = b[..., -1], g.amax(-1)
+    m = torch.full((B, H), ref.NEG_INF)
+    m_prev, w_prev, upd = [], [], []
+    for c in range(nc):
+        m_next = torch.maximum(m + F[..., c], F[..., c] + gmax[..., c])
+        m_prev.append(m)
+        w_prev.append(torch.exp(m + F[..., c] - m_next))
+        upd.append(torch.exp(F[..., c] + gmax[..., c] - m_next))
+        m = m_next
+    m_prev = torch.stack(m_prev, -1)[..., None]           # (B, H, nc, 1)
+    m_t = torch.maximum(torch.cummax(g, -1).values + b, m_prev + b)
+    inter = torch.exp((m_prev + b) - m_t)
+    # (1) each chunk's update, from its own keys and values
+    kw = kf * torch.exp(g - gmax[..., None])[..., None]
+    dC = torch.einsum("bhcja,bhcje->bhcae", kw, vf)
+    dn = kw.sum(-2)
+    # (2) the scan: the state at each chunk's start
+    C, n = torch.zeros(B, H, dh, dh), torch.zeros(B, H, dh)
+    C0, n0 = [], []
+    for c in range(nc):
+        C0.append(C)
+        n0.append(n)
+        a, s = w_prev[c][..., None], upd[c][..., None]
+        C, n = a[..., None] * C + s[..., None] * dC[:, :, c], \
+            a * n + s * dn[:, :, c]
+    C0, n0 = torch.stack(C0, 2), torch.stack(n0, 2)
+    # (3) outputs
+    D = torch.exp(b[..., :, None] + g[..., None, :] - m_t[..., :, None])
+    D = torch.where(torch.ones(K, K, dtype=torch.bool).tril(), D, 0.0)
+    w = (torch.einsum("bhcta,bhcja->bhctj", qf, kf) * scale) * D
+    qi = qf * (inter * scale)[..., None]
+    num = w @ vf + qi @ C0
+    den = w.sum(-1) + (qi * n0[..., None, :]).sum(-1)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    return h.reshape(B, H, S, dh).to(q.dtype)
+
+
+# (B, H, S, dh, chunk): 1, 2 and 16 chunks, and a ragged S whose chunk
+# halves (48 by 32 -> 16)
+MLSTM_SPLIT_SHAPES = ((1, 2, 64, 16, 64), (2, 2, 128, 32, 64),
+                      (1, 1, 256, 16, 16), (1, 2, 48, 16, 32))
+
+
+@pytest.mark.parametrize("shape", MLSTM_SPLIT_SHAPES)
+def test_mlstm_chunk_parallel_decomposition_matches_reference(shape):
+    """The kernel's split across chunks -- per-chunk updates, a scan of the
+    state, per-chunk outputs -- holds to the reference's Pallas kernel
+    (interpret mode) and to the token-by-token oracle at 2e-3."""
+    *dims, chunk = shape
+    a = _mlstm_in(400 + MLSTM_SPLIT_SHAPES.index(shape), *dims)
+    got = _mlstm_chunk_parallel(*map(_t, a), chunk=chunk)
+    K = min(chunk, dims[2])
+    while dims[2] % K:                       # as the wrappers halve it
+        K //= 2
+    want = np.asarray(ref_mc.mlstm_chunkwise(*map(jnp.asarray, a),
+                                             chunk=K, interpret=True))
+    _close(got.numpy(), want, 2e-3)
+    _close(got.numpy(), ref.mlstm_chunkwise_ref(*map(_t, a)).numpy(), 2e-3)
+    _close(got.numpy(), np.asarray(ref_ref.mlstm_chunkwise_ref(
+        *map(jnp.asarray, a))), 2e-3)
