@@ -55,9 +55,11 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   mLSTM in bf16, at xlstm-125m's width on a short sequence;
                   then timed beside its plain version, its bound (the bulk
                   ops with their share of it) and, where one exists, a
-                  PyTorch library call; the mLSTM also beside the f32 and
-                  one-SM-per-chain floors, with its four kernels' device
-                  time;
+                  PyTorch library call; f32 attention and the mLSTM against
+                  their 3xTF32 bound and the same flops in f32 outside the
+                  tensor cores, the mLSTM also beside its one-SM-per-chain
+                  floor, with its four kernels' device time; the share of
+                  the tolerance of f32 and bf16 attention;
   6. result    -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
@@ -544,28 +546,57 @@ def cim_kernels_phase(dev):
                                                         window=w), 1)
             n_ops = 4 * d * g["batch"] * g["heads"] * unmasked_scores(S, S, w)
             n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-            bound, by_ = bytes_bound_ms(
-                n_bytes, n_ops, FP32_OPS_PER_S if dt == torch.float32
-                else BF16_OPS_PER_S)
             key = f"{str(dt).split('.')[-1]} {kind}"
+            if dt == torch.float32:
+                # f32 runs its products as 3xTF32: three TF32 products each
+                # on the tensor cores; the same flops in f32 outside them
+                # are printed beside it
+                bound, by_ = bytes_bound_ms(n_bytes, 3 * n_ops,
+                                            TF32_OPS_PER_S)
+                f32_bound, _ = bytes_bound_ms(n_bytes, n_ops)
+                extra = dict(f32_bound_ms=f32_bound,
+                             f32_bound_share=f32_bound / ms)
+                bounds = (f"bound {bound:.4f} ms ({by_}, 3xTF32 on the "
+                          f"tensor cores; {bound / ms:.3f} of it), the same "
+                          f"flops in f32 outside the tensor cores "
+                          f"{f32_bound:.4f} ms ({f32_bound / ms:.3f} of it)")
+            else:
+                bound, by_ = bytes_bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+                extra = {}
+                bounds = f"bound {bound:.4f} ms ({by_})"
             variants[key] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                                 bound_ms=bound, bound_by=by_, flop=n_ops)
+                                 bound_ms=bound, bound_by=by_,
+                                 bound_share=bound / ms, flop=n_ops, **extra)
             print(f"flash_attention {key} (window {w}): {ms:.4f} ms kernel, "
                   f"{lib_ms:.4f} ms library ({ms / lib_ms:.2f}x; in "
-                  f"turns), {plain:.1f} ms plain (host), bound "
-                  f"{bound:.4f} ms ({by_})", flush=True)
+                  f"turns), {plain:.1f} ms plain (host), {bounds}",
+                  flush=True)
         ins = attn_in[dt]
         prefill = event_ms(lambda: [ops.flash_attention(q, k, v, window=w)
                                     for (q, k, v), w in zip(ins, windows)],
                            2)
-        variants[f"{str(dt).split('.')[-1]} prefill"] = dict(ms=prefill)
+        name = str(dt).split('.')[-1]
+        n_window = sum(1 for w in windows if w)
+        per_layer = {x: variants[f"{name} {x}"] for x in ("global", "window")}
+        pre = dict(ms=prefill, **{
+            b: (len(windows) - n_window) * per_layer["global"][b]
+            + n_window * per_layer["window"][b]
+            for b in ("bound_ms", "f32_bound_ms") if b in per_layer["window"]})
+        variants[f"{name} prefill"] = pre
         print(f"flash_attention {dt} prefill ({g['layers']} launches): "
-              f"{prefill:.3f} ms", flush=True)
-    print(f"flash_attention bf16 (tensor cores): max_abs_err "
-          f"{err['flash_attention bf16']:.3g}, "
-          f"{share_of_tol['flash_attention bf16']:.3f} of the tolerance "
-          f"(atol {FLASH_TOL[torch.bfloat16][0]:g}, rtol "
-          f"{FLASH_TOL[torch.bfloat16][1]:g})", flush=True)
+              f"{prefill:.3f} ms; summed bound {pre['bound_ms']:.4f} ms ("
+              f"{pre['bound_ms'] / prefill:.3f} of it)"
+              + (f", in f32 outside the tensor cores "
+                 f"{pre['f32_bound_ms']:.4f} ms "
+                 f"({pre['f32_bound_ms'] / prefill:.3f} of it)"
+                 if "f32_bound_ms" in pre else ""), flush=True)
+    for key, name, dt in (("flash_attention", "f32", torch.float32),
+                          ("flash_attention bf16", "bf16",
+                           torch.bfloat16)):
+        print(f"flash_attention {name}: max_abs_err {err[key]:.3g}, "
+              f"{share_of_tol[key]:.3f} of the tolerance (atol "
+              f"{FLASH_TOL[dt][0]:g}, rtol {FLASH_TOL[dt][1]:g})",
+              flush=True)
     top = variants["float32 global"]
     table["flash_attention"] = dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -573,7 +604,9 @@ def cim_kernels_phase(dev):
         twin="src/repro/kernels/flash_attention.py::flash_attention",
         within_tolerance=True, tolerance=FLASH_TOL[torch.float32], **{
             k_: top[k_] for k_ in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")},
+                                   "bound_ms", "bound_by", "f32_bound_ms",
+                                   "bound_share", "f32_bound_share")},
+        share_of_tolerance=share_of_tol["flash_attention"],
         bf16_tolerance=FLASH_TOL[torch.bfloat16],
         bf16_max_abs_err=err["flash_attention bf16"],
         bf16_share_of_tolerance=share_of_tol["flash_attention bf16"],
@@ -1119,7 +1152,8 @@ def main():
                           "astar_ns_per_access", "device_all_hit_ns_per_access",
                           "device_astar_ns_per_access", "l1_misses",
                           "main_path_device_ms",
-                          "f32_bound_ms", "chain_bound_ms",
+                          "f32_bound_ms", "f32_bound_share",
+                          "chain_bound_ms", "share_of_tolerance",
                           "launches_per_prefill",
                           "prefill_ms", "bf16_tolerance", "bf16_max_abs_err",
                           "bf16_share_of_tolerance", "library_call",

@@ -10,11 +10,25 @@
 // repeat), and KV tiles that the causal and window masks leave empty for
 // every row of the q tile are skipped.  Two kernels, one per input type:
 //
-// f32 (flash_kernel): bound by operations, 4*d flops per unmasked score at
-// the 67 TFLOP/s outside the tensor cores, since TF32 could not hold the
-// reference's 2e-5.  Scalar FMAs over tiles in dynamic shared memory
-// (213,760 bytes at d = 256), a 4x4 register tile of scores and a 4 x d/16
-// register tile of the output per thread.
+// f32 (flash_mma_kernel): on the tensor cores, as 3xTF32 mma.sync
+// m16n8k8.  One TF32 product keeps about 10 bits of each operand and
+// misses the reference's 2e-5 many times over, so each operand is split
+// into a TF32 hi and lo part and A B = A_lo B_hi + A_hi B_lo + A_hi B_hi,
+// all three terms in both products (tests/test_torch_kernels_ops.py
+// emulates the design, and shows that any term dropped misses).  Bound by
+// operations: 3 x 4*d flops per unmasked score at the 495 TFLOP/s of
+// TF32.  Eight warps a block: four bands of 16 q rows, two warps a band,
+// one half of d each.  A warp sums Q.K^T over its half of d and adds its
+// partner's partial scores through shared memory; both then run the same
+// softmax, and each computes P.V for its half of the output columns (64
+// accumulators a thread at d = 256).  P passes from the scores'
+// accumulator to P.V's A fragment in registers, unmoved: within an 8-key
+// step the keys are taken in the accumulator's order (2c, 2c + 1 as
+// columns c, c + 4), and V's rows in the same order.  Q, K and V tiles (64
+// rows) sit in shared memory with their 8-float chunks permuted so that
+// fragment loads are free of bank conflicts, 229,376 bytes at d = 256: one
+// block an SM.  cp.async brings V(j) in while Q.K^T(j) runs and K(j + 1)
+// while P.V(j) runs.
 //
 // bf16 (flash_wgmma_kernel): bound by operations too, at the 989 TFLOP/s of
 // the bf16 tensor cores, which only Hopper's warpgroup products (wgmma)
@@ -55,178 +69,7 @@ namespace {
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-             int Sq, int Skv, int causal, int window, float sm_scale) {
-  constexpr int DP = D + 1;    // padded row stride: no bank conflicts
-  constexpr int PP = BK + 1;
-  constexpr int NC = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;            // BQ x DP
-  float* Ks = Qs + BQ * DP;    // BK x DP
-  float* Vs = Ks + BK * DP;    // BK x D
-  float* Ps = Vs + BK * D;     // BQ x PP
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = qt * BQ;
-  const int nrow = min(BQ, Sq - q0);
-  const T* qp = q + ((size_t)bh * Sq + q0) * D;
-  const T* kp = k + (size_t)(b * Hkv + hk) * Skv * D;
-  const T* vp = v + (size_t)(b * Hkv + hk) * Skv * D;
-  T* op = o + ((size_t)bh * Sq + q0) * D;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    Qs[r * DP + c] = r < nrow ? to_f(qp[(size_t)r * D + c]) : 0.f;
-  }
-
-  // the KV tiles holding any unmasked key of this q tile
-  const int q_last = q0 + nrow - 1;
-  const int nkt = (Skv + BK - 1) / BK;
-  int lo = 0, hi = nkt;
-  if (!(window > 0 && q_last >= Skv + window - 1)) {
-    if (causal) hi = min(nkt, q_last / BK + 1);
-    if (window > 0) lo = max(0, q0 - window + 1) / BK;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // Q loaded; last tile's Ks, Vs, Ps no longer read
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const bool ok = k0 + r < Skv;
-      const size_t g = (size_t)(k0 + r) * D + c;
-      Ks[r * DP + c] = ok ? to_f(kp[g]) : 0.f;
-      Vs[r * D + c] = ok ? to_f(vp[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool keep = true;
-        if (causal) keep = qpos >= kpos;
-        if (window > 0) keep = keep && (qpos - kpos < window);
-        float val = keep ? s[i][j] * sm_scale : NEG_INF;
-        if (kpos >= Skv) val = -INFINITY;
-        s[i][j] = val;
-        mx = fmaxf(mx, val);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * 4 + i) * PP + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();  // Ps complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PP + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nrow) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      op[(size_t)r * D + tx + 16 * c] = from_f<T>(acc[i][c] / den);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int Sq, int Skv, int causal,
-                   int window, float sm_scale, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_kernel<T, D><<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Skv, causal,
-      window, sm_scale);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------- bf16 on the tensor cores
 constexpr int WG_THREADS = 128;                // one warpgroup: 4 warps
@@ -565,7 +408,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;      // fragment row, column pair
 
-  // the KV tiles holding any unmasked key of this q tile (as flash_kernel)
+  // the KV tiles holding any unmasked key of this q tile (as
+  // flash_mma_kernel)
   const int q_last = q0 + nrow - 1;
   const int nkt = (Skv + BK - 1) / BK;
   int lo = 0, hi = nkt;
@@ -739,6 +583,316 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------ f32 on the tensor cores, 3xTF32
+constexpr int MMA_THREADS = 256;   // 8 warps: 4 row bands x 2 halves of d
+
+// 3xTF32 (as mlstm_chunk.cu): each f32 operand x is split into x_hi and
+// x_lo = x - x_hi, and A B = A_lo B_hi + A_hi B_lo + A_hi B_hi in f32
+// accumulators (the dropped A_lo B_lo is below f32 rounding).  x_hi is x
+// with its 13 low mantissa bits cleared (TF32, rounded toward zero), so
+// x_lo is exact in f32, and x_lo goes to the tensor cores as it is: they
+// read a TF32 operand's upper 19 bits (the code nvcc emits for
+// cvt.rna.tf32.f32 relies on that too), so it is rounded toward zero
+// there.  Two instructions an element where cvt.rna takes about eight for
+// both parts (with its checks for inf and NaN); round to nearest would
+// not be more accurate here (tests/test_torch_kernels_ops.py emulates
+// both).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// an A fragment split once, for all the B fragments it meets
+struct SplitA {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2,
+                                          float a3) {
+  SplitA a;
+  split_tf32(a0, a.hi[0], a.lo[0]);
+  split_tf32(a1, a.hi[1], a.lo[1]);
+  split_tf32(a2, a.hi[2], a.lo[2]);
+  split_tf32(a3, a.hi[3], a.lo[3]);
+  return a;
+}
+
+// d += A B, B's fragment (b0, b1) split here
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const SplitA& a,
+                                           float b0, float b1) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+  mma_tf32(d, a.lo, bh);
+  mma_tf32(d, a.hi, bl);
+  mma_tf32(d, a.hi, bh);
+}
+
+// the two warps of a row band meet here (named barriers 1-4; 0 is
+// __syncthreads)
+__device__ __forceinline__ void band_sync(int band) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(band + 1) : "memory");
+}
+
+// Q, K and V tiles in shared memory: 64 rows of D floats, unpadded, the
+// 8-float chunks of a row permuted by an XOR so that fragment loads are
+// free of bank conflicts.  Q and K are read 8 bytes a lane (rows g, dims
+// 2c and 2c + 1): chunk ^ (row % 4) puts rows g = 0..3 of a half-warp on
+// four different groups of 8 banks.  V is read 4 bytes a lane (keys 2c
+// and 2c + 1, column g): chunk ^ (row / 2 % 4) does the same for c =
+// 0..3.  16-byte cp.async chunks stay whole.  At d = 16 (two chunks a
+// row) nothing is permuted.
+template <int D>
+__device__ __forceinline__ int qk_at(int row, int col) {
+  return row * D + (col ^ (D >= 32 ? (row & 3) << 3 : 0));
+}
+template <int D>
+__device__ __forceinline__ int v_at(int row, int col) {
+  return row * D + (col ^ (D >= 32 ? ((row >> 1) & 3) << 3 : 0));
+}
+// Q, K and V tiles, and each warp's partial scores (BK / 8 float4 a lane)
+template <int D>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return sizeof(float) * ((size_t)(BQ + 2 * BK) * D +
+                          (size_t)(MMA_THREADS / 32) * BK * 16);
+}
+
+// rows [0, valid) of a 64 x D f32 tile at g (row stride D) into shared
+// memory at dst, laid out as V (v_at) or as Q and K (qk_at), rows from
+// `valid` on zeros; 16 bytes a thread per step, consecutive threads on
+// consecutive bytes of a row
+template <int D, bool AS_V>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* g,
+                                              int valid, int tid) {
+  constexpr int CH = D / 4;                   // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < BK * CH / MMA_THREADS; ++it) {
+    const int i = tid + it * MMA_THREADS;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r < valid;
+    cp_async16(smem_u32(dst + (AS_V ? v_at<D>(r, c * 4)
+                                    : qk_at<D>(r, c * 4))),
+               ok ? g + (size_t)r * D + c * 4 : g, ok ? 16 : 0);
+  }
+}
+
+// One block per (b*h, 64-row q tile), longest causal tiles first.  Warp w
+// owns rows 16 (w / 2) .. + 15 of the tile and half w % 2 of d: for Q.K^T
+// it sums its half of the dimensions over all BK keys of a tile, the two
+// warps of a band add their partial scores through shared memory (a + b
+// == b + a, so both hold the same scores and run the same softmax), and
+// for P.V it owns its half of the output columns.  Every product is
+// mma.sync m16n8k8 in 3xTF32.  A fragment's logical column c is the pair
+// (2c, 2c + 1) of the accumulator layout: for Q.K^T, dims 2c and 2c + 1
+// of an 8-dim step are logical columns c and c + 4 of both Q and K (8-byte
+// loads); for P.V the scores' accumulator is P's A fragment as it stands
+// (row g, keys 2c, 2c + 1 in elements 0, 1; row g + 8 in 2, 3) when B
+// takes V's keys 2c and 2c + 1 as its rows c and c + 4.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+flash_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int Hkv, int Sq, int Skv, int causal, int window,
+                 float sm_scale) {
+  constexpr int HALF = D / 2;
+  constexpr int KS = HALF / 8;                // 8-dim steps of a half
+  constexpr int NK = BK / 8;                  // 8-key tiles of a KV tile
+  extern __shared__ __align__(16) float smem_f[];
+  float* Qs = smem_f;                         // BQ x D
+  float* Ks = Qs + BQ * D;                    // BK x D
+  float* Vs = Ks + BK * D;                    // BK x D
+  float4* Xs = reinterpret_cast<float4*>(Vs + BK * D);  // warps x NK x 32
+
+  // block -> (b*h, q tile), ranked by causal length, longest first
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const int BH = gridDim.x / nqt;
+  const int bh = blockIdx.x % BH, qt = nqt - 1 - blockIdx.x / BH;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = qt * BQ;
+  const int nrow = min(BQ, Sq - q0);
+  const float* kp = k + (size_t)(b * Hkv + hk) * Skv * D;
+  const float* vp = v + (size_t)(b * Hkv + hk) * Skv * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int band = warp >> 1, half = warp & 1;
+  const int g = lane >> 2, c = lane & 3;      // fragment row, column pair
+  const int r0 = band * 16 + g;               // this lane's rows r0, r0 + 8
+  const int d0 = half * HALF + 2 * c;         // its dims d0 + 8 s, + 1
+
+  // the KV tiles holding any unmasked key of this q tile; a tile holding a
+  // row with no real key (window > 0 and q >= Skv + window - 1) skips none
+  const int q_last = q0 + nrow - 1;
+  const int nkt = (Skv + BK - 1) / BK;
+  int lo = 0, hi = nkt;
+  if (!(window > 0 && q_last >= Skv + window - 1)) {
+    if (causal) hi = min(nkt, q_last / BK + 1);
+    if (window > 0) lo = max(0, q0 - window + 1) / BK;
+  }
+  load_tile_f32<D, false>(Qs, q + ((size_t)bh * Sq + q0) * D, nrow, tid);
+  if (lo < hi)
+    load_tile_f32<D, false>(Ks, kp + (size_t)lo * BK * D, Skv - lo * BK,
+                            tid);
+  cp_async_commit();
+
+  // output columns half * HALF + 8 n + 2c, +1: rows r0 in acc[n][0..1],
+  // r0 + 8 in acc[n][2..3]; m and l of rows r0, r0 + 8 (l this lane's
+  // share, summed over the quad at the end)
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait_all();
+    __syncthreads();            // K(kt) landed; P.V(kt-1) done, V free
+    load_tile_f32<D, true>(Vs, vp + (size_t)k0 * D, Skv - k0, tid);
+    cp_async_commit();
+
+    // this half's share of the scores: keys 8j + 2c, +1 in s[j][0..1]
+    // (row r0), s[j][2..3] (row r0 + 8)
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < KS; ++st) {
+      const float2 qg = *reinterpret_cast<const float2*>(
+          Qs + qk_at<D>(r0, d0 + 8 * st));
+      const float2 qg8 = *reinterpret_cast<const float2*>(
+          Qs + qk_at<D>(r0 + 8, d0 + 8 * st));
+      const SplitA a = split_a(qg.x, qg8.x, qg.y, qg8.y);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            Ks + qk_at<D>(8 * j + g, d0 + 8 * st));
+        mma_3xtf32(s[j], a, x.x, x.y);
+      }
+    }
+    // the other half's share, from its warp
+    float4* mine = Xs + (warp * NK) * 32 + lane;
+    const float4* other = Xs + ((warp ^ 1) * NK) * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+      mine[j * 32] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    band_sync(band);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float4 x = other[j * 32];
+      s[j][0] += x.x;
+      s[j][1] += x.y;
+      s[j][2] += x.z;
+      s[j][3] += x.w;
+    }
+
+    const bool masked = (causal && k0 + BK - 1 > q0) ||
+                        (window > 0 && q_last - k0 >= window) ||
+                        k0 + BK > Skv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = s[j][e] * sm_scale;
+        if (masked) {
+          const int qpos = q0 + r0 + (e >> 1) * 8;
+          const int kpos = k0 + 8 * j + 2 * c + (e & 1);
+          bool keep = true;
+          if (causal) keep = qpos >= kpos;
+          if (window > 0) keep = keep && (qpos - kpos < window);
+          val = keep ? val : NEG_INF;
+          if (kpos >= Skv) val = -INFINITY;
+        }
+        s[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {     // a row lives in the 4 lanes of a quad
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f((m[i] - m_new) * LOG2E);
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f((s[j][e] - m[e >> 1]) * LOG2E);  // P, in place
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    cp_async_wait_all();
+    __syncthreads();            // V(kt) landed; Q.K^T(kt) done, K free
+    if (kt + 1 < hi)
+      load_tile_f32<D, false>(Ks, kp + (size_t)(k0 + BK) * D, Skv - k0 - BK,
+                              tid);
+    cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const SplitA a = split_a(s[j][0], s[j][2], s[j][1], s[j][3]);
+      const int kr = 8 * j + 2 * c, col = half * HALF + g;
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+        mma_3xtf32(acc[n], a, Vs[v_at<D>(kr, col + 8 * n)],
+                   Vs[v_at<D>(kr + 1, col + 8 * n)]);
+    }
+  }
+  cp_async_wait_all();
+
+  float* op = o + ((size_t)bh * Sq + q0) * D + d0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = r0 + 8 * i;
+    if (r >= nrow) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(op + (size_t)r * D + 8 * n) =
+          make_float2(acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int Hkv, int Sq, int Skv, int causal,
+                       int window, float sm_scale, cudaStream_t s) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  const int64_t n_items = (int64_t)B * H * ((Sq + BQ - 1) / BQ);
+  if (n_items > INT32_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_mma_kernel<D><<<(unsigned)n_items, MMA_THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Skv,
+      causal, window, sm_scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
                      void* o, int B, int H, int Hkv, int Sq, int Skv,
@@ -749,8 +903,8 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
       return launch_wgmma<DIM>(q, k, v, o, B, H, Hkv, Sq, Skv, causal,     \
                                window, sm_scale, s);                       \
     else                                                                   \
-      return launch<T, DIM>(q, k, v, o, B, H, Hkv, Sq, Skv, causal,        \
-                            window, sm_scale, s);
+      return launch_mma<DIM>(q, k, v, o, B, H, Hkv, Sq, Skv, causal,       \
+                             window, sm_scale, s);
   switch (d) {
     FLASH_CASE(16)
     FLASH_CASE(32)

@@ -5,9 +5,10 @@ with f32 m/l/acc, causal and sliding-window masks from positions, GQA,
 masked scores at the finite ``NEG_INF = -1e30``, and the result
 ``acc / max(l, 1e-30)`` in q's dtype.  A CUDA tensor launches the kernel
 (``csrc/flash_attention.cu``: one block per (b*h, 64-row q tile), KV tiles
-looped inside, K/V head ``h // G`` read in place; f32 on the CUDA cores,
-bf16 on the tensor cores through wgmma, with P split into two bf16 terms
-for the P.V product); a CPU tensor takes the plain version, the
+looped inside, K/V head ``h // G`` read in place; f32 on the tensor cores
+as 3xTF32 ``mma.sync`` (each operand split into two TF32 terms, three
+products), bf16 through wgmma, with P split into two bf16 terms for the
+P.V product); a CPU tensor takes the plain version, the
 dense-softmax ``ref.flash_attention_ref``.
 
 Sq and Skv must tile by the blocks, as in the reference (``ops.py``

@@ -29,6 +29,7 @@ from repro_torch.core.isa import OP_STORE
 from repro_torch.core.offload import OffloadConfig, select_candidates
 from repro_torch.core.trace import attach_cache_results_batch
 from repro_torch import kernels
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.workloads import fixtures
 
@@ -427,6 +428,11 @@ BF16 = (2e-3, 1e-2)
     ((1, 4, 1, 1024, 1024, 256), 512, torch.float32, F32_FLASH),  # gemma3-1b
     ((1, 4, 1, 1024, 1024, 256), 0, torch.bfloat16, BF16),
     ((1, 2, 2, 100, 70, 32), 16, torch.float32, F32_FLASH),  # ragged quirk
+    ((2, 4, 1, 40, 40, 96), 0, torch.float32, F32_FLASH),   # Sq < the q tile
+    # GQA (H / Hkv = 4) at gemma3-1b's width over 24 q tiles, B = 2
+    ((2, 4, 1, 1536, 1536, 256), 512, torch.float32, F32_FLASH),
+    # rows 79 on have no real key (q >= Skv + window - 1): uniform average
+    ((1, 2, 1, 256, 64, 32), 16, torch.float32, F32_FLASH),
     # bf16 on the tensor cores
     ((1, 4, 1, 1024, 1024, 256), 512, torch.bfloat16, BF16),  # gemma3-1b
     ((2, 4, 2, 256, 256, 64), 32, torch.bfloat16, BF16),      # GQA, d=64
@@ -464,6 +470,38 @@ def test_flash_attention_bf16_kernel_ragged_tiles(cuda, d, window):
     want = ops.flash_attention(q, k, v, window=window, block_q=8, block_k=8)
     torch.testing.assert_close(got.cpu().float(), want.float(), atol=BF16[0],
                                rtol=BF16[1])
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_attention_f32_kernel_at_every_head_dim(cuda, d, window):
+    """Every head dim the kernel is built for, in f32 on the tensor cores:
+    GQA (H / Hkv = 2), three q tiles, a window shorter than a tile."""
+    q = _normal((1, 4, 192, d), 20, torch.float32)
+    k, v = (_normal((1, 2, 192, d), s, torch.float32) for s in (21, 22))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), window=window, block_q=64,
+        block_k=64))
+    want = ops.flash_attention(q, k, v, window=window, block_q=64,
+                               block_k=64)
+    torch.testing.assert_close(got.cpu(), want, atol=F32_FLASH[0],
+                               rtol=F32_FLASH[1])
+
+
+@pytest.mark.parametrize("d", [16, 64, 192, 256])
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_attention_f32_kernel_ragged_tiles(cuda, d, window):
+    """Sq = Skv = 136 with 8-row blocks, in f32: the last q tile is
+    partial and the keys past Skv of the last KV tile are zero rows scored
+    -inf (as test_flash_attention_bf16_kernel_ragged_tiles)."""
+    q = _normal((1, 4, 136, d), 14, torch.float32)
+    k, v = (_normal((1, 2, 136, d), s, torch.float32) for s in (15, 16))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), window=window, block_q=8,
+        block_k=8))
+    want = ops.flash_attention(q, k, v, window=window, block_q=8, block_k=8)
+    torch.testing.assert_close(got.cpu(), want, atol=F32_FLASH[0],
+                               rtol=F32_FLASH[1])
 
 
 def test_flash_attention_kernel_takes_unaligned_views(cuda):

@@ -233,6 +233,171 @@ def test_flash_attention_bf16_single_p_rounding_misses_card_bound():
     assert _share_of_card_bound(split, want) < 0.7
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: on the int32 view, add
+    half of the 13 dropped bits' unit to the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x rounded to TF32 toward zero: the 13 low mantissa bits cleared, as
+    the kernel makes its hi part and as the tensor cores read an operand
+    that is not TF32 already (its lo part)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+#: how the kernel rounds (``trunc``), and round to nearest for comparison
+TF32_ROUNDING = {"trunc": _tf32_trunc, "rna": _tf32}
+#: the products of a 3xTF32 split, (A term, B term): A_lo B_hi, A_hi B_lo,
+#: A_hi B_hi, summed in that order; A_lo B_lo is dropped
+TERMS_3X = (("lo", "hi"), ("hi", "lo"), ("hi", "hi"))
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _split_product(eq, a, b, terms, rounding):
+    """einsum ``eq`` of f32 ``a`` and ``b`` as the tensor cores run it: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi) (``rounding``
+    names the TF32 rounding), the products of ``terms`` (each exact in
+    f32) summed in f32."""
+    tf32 = TF32_ROUNDING[rounding]
+    parts = {}
+    for name, x in (("a", a), ("b", b)):
+        hi = tf32(x)
+        parts[name] = dict(hi=hi, lo=tf32(x - hi))
+    out = None
+    for ta, tb in terms:
+        t = torch.einsum(eq, parts["a"][ta], parts["b"][tb])
+        out = t if out is None else out + t
+    return out
+
+
+def _flash_f32_tf32_tiles(q, k, v, *, causal, window, split=(TERMS_3X,
+                                                           TERMS_3X),
+                          rounding="trunc", block=64):
+    """The f32 CUDA kernel's rounding points in plain torch: Q.K^T and P.V
+    as split TF32 products (``split``: the terms of each, default 3xTF32;
+    ``rounding``: the kernel's TF32 rounding toward zero, or ``rna``),
+    Q.K^T summed over the two halves of d apart and then added (two warps
+    share a row band, one half each), scores times 1/sqrt(d), an online
+    softmax in f32 over ``block``-key tiles with exp(x) as 2^(x log2 e),
+    the result acc / max(l, 1e-30).  Every KV tile is visited, as in
+    ``_flash_bf16_tiles``."""
+    qk_terms, pv_terms = split
+    G = q.shape[1] // k.shape[1]
+    kf, vf = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    Sq, Skv, d = q.shape[2], k.shape[2], q.shape[3]
+    half = d // 2
+    sm_scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    m = torch.full(q.shape[:3], ref.NEG_INF)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block):
+        kt, vt = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
+        s = (_split_product("bhqd,bhkd->bhqk", q[..., :half],
+                            kt[..., :half], qk_terms, rounding)
+             + _split_product("bhqd,bhkd->bhqk", q[..., half:],
+                              kt[..., half:], qk_terms, rounding)) * sm_scale
+        k_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        keep = torch.ones(Sq, k_pos.shape[1], dtype=torch.bool)
+        if causal:
+            keep = keep & (q_pos >= k_pos)
+        if window > 0:
+            keep = keep & (q_pos - k_pos < window)
+        s = torch.where(keep, s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2((m - m_new) * LOG2E)
+        p = torch.exp2((s - m_new[..., None]) * LOG2E)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _split_product(
+            "bhqk,bhkd->bhqd", p, vt, pv_terms, rounding)
+        m = m_new
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+F32_TOL = (2e-5, 2e-5)              # (atol, rtol): the reference's bound
+# gemma3-1b's attention width (H=4, Hkv=1, d=256) on a 512-row prefill
+GEMMA_F32 = dict(seed=3, B=1, H=4, Hkv=1, Sq=512, d=256)
+
+
+def test_tf32_roundings():
+    """rna: to nearest, ties away from zero; trunc: toward zero; both to
+    10 stored bits, the 13 low bits clear."""
+    ulp = 2.0 ** -10                      # TF32's unit at [1, 2)
+    x = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 2 - 2 ** -20,
+                      -(1.0 + ulp / 2), 1.0 + 1.5 * ulp, 0.0])
+    assert torch.equal(_tf32(x), torch.tensor(
+        [1.0, 1.0 + ulp, 1.0, -(1.0 + ulp), 1.0 + 2 * ulp, 0.0]))
+    assert torch.equal(_tf32_trunc(x), torch.tensor(
+        [1.0, 1.0, 1.0, -1.0, 1.0 + ulp, 0.0]))
+    r = torch.from_numpy(_r(4).normal(size=10_000).astype(np.float32))
+    for tf32, worst in ((_tf32, 2.0 ** -11), (_tf32_trunc, 2.0 ** -10)):
+        t = tf32(r)
+        assert torch.equal(t.view(torch.int32) & 0x1FFF,
+                           torch.zeros_like(t.view(torch.int32)))
+        assert float(((t - r).abs() / r.abs()).max()) <= worst
+    # the split: hi + lo is x exactly, lo is under a hi ulp
+    hi = _tf32_trunc(r)
+    assert torch.equal(hi + (r - hi), r)
+    assert bool(((r - hi).abs() < hi.abs() * 2.0 ** -10).all())
+
+
+@pytest.mark.parametrize("rounding", ["trunc", "rna"])
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_attention_f32_rounding_design_within_half_the_bound(
+        window, rounding):
+    """The tensor-core kernel's 3xTF32 rounding points keep it under half
+    of the f32 check, atol 2e-5 and rtol 2e-5 against the dense oracle, at
+    gemma3-1b's width, with its TF32 rounding toward zero as with round to
+    nearest."""
+    q, k, v = (_t(a) for a in _qkv(**GEMMA_F32))
+    got = _flash_f32_tf32_tiles(q, k, v, causal=True, window=window,
+                                rounding=rounding)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, atol=F32_TOL[0], rtol=F32_TOL[1])
+    assert _share_of_card_bound(got, want, F32_TOL) < 0.5
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_attention_f32_single_tf32_product_misses_the_bound(window):
+    """Why the kernel splits: one TF32 product per product (10 bits of
+    each operand) misses the f32 check many times over."""
+    q, k, v = (_t(a) for a in _qkv(**GEMMA_F32))
+    single = ((("hi", "hi"),),) * 2
+    got = _flash_f32_tf32_tiles(q, k, v, causal=True, window=window,
+                                split=single)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    assert _share_of_card_bound(got, want, F32_TOL) > 2.0
+
+
+@pytest.mark.parametrize("dropped", [("lo", "hi"), ("hi", "lo")])
+def test_flash_attention_f32_pv_needs_all_three_terms(dropped):
+    """P.V keeps all three products: without P_lo V_hi (P's rounding) or
+    P_hi V_lo (V's) the result misses the f32 check (many times over at
+    this seed), with Q.K^T in 3xTF32 as the kernel runs it."""
+    q, k, v = (_t(a) for a in _qkv(**GEMMA_F32))
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    two = tuple(t for t in TERMS_3X if t != dropped)
+    got = _flash_f32_tf32_tiles(q, k, v, causal=True, window=0,
+                                split=(TERMS_3X, two))
+    assert _share_of_card_bound(got, want, F32_TOL) > 1.0
+
+
+@pytest.mark.parametrize("window", [0, 32])
+def test_flash_attention_f32_rounding_design_matches_reference_kernel(window):
+    """The emulated kernel against the reference's Pallas kernel (interpret
+    mode) on a small GQA shape with a ragged last KV tile."""
+    q, k, v = _qkv(12, 1, 4, 2, 96, 64)
+    want = np.asarray(ref_ops.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=True, window=window,
+        block_q=32, block_k=32, interpret=True))
+    got = _flash_f32_tf32_tiles(_t(q), _t(k), _t(v), causal=True,
+                                window=window)
+    _close(got.numpy(), want, 2e-5)
+
+
 def test_flash_attention_matches_model_path():
     """Port kernel path vs the reference model stack's chunked-jnp flash."""
     r = _r(9)
