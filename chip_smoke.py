@@ -60,7 +60,19 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   tensor cores, the mLSTM also beside its one-SM-per-chain
                   floor, with its four kernels' device time; the share of
                   the tolerance of f32 and bf16 attention;
-  6. result    -- the kernel table as one JSON line, the nvidia-smi line,
+  6. DSE and artifacts -- the paper artifacts through the port's runner
+                  (``repro_torch.bench``: table3/5, fig12/13, table6,
+                  fig14–17, fig_adaptive) on the card, one engine, into a
+                  temporary directory: each CSV and JSON byte-identical to
+                  the committed reference artifact; the full records of
+                  the fig14–17 and fig_adaptive spaces and the adaptive run
+                  (frontier, points priced per round) equal (==) to the
+                  reference's; per artifact its wall seconds, the engine's
+                  counters and the replay/placement launches, each launch
+                  count equal to the builds that caused it; fig14's space
+                  again from a warm store (no replay, no placement) and
+                  under the process executor, two workers on the card;
+  7. result    -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -69,12 +81,15 @@ device it exits with code 2 before doing anything.  Longer output (the
 compiler's register report, per-workload stage seconds) goes to
 ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import ctypes
+import io
 import json
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -671,6 +686,149 @@ def cim_kernels_phase(dev):
     return table, launches, path_s
 
 
+def dse_phase(dev):
+    """Phase 6: the paper artifacts, the sweep records, the adaptive run,
+    a warm store and the process executor, all on ``dev``.  Returns
+    (summary for the detail file, the phase's replay/place launches)."""
+    from repro_torch.bench import common, run as bench_run
+    from repro_torch.core import accel
+    from repro_torch.dse import AdaptiveDSE, DSEEngine
+    from repro_torch.workloads import fixtures
+
+    def counters(cache):
+        return dict(cache.stats(), single_replays=cache.single_replays)
+
+    def delta(a, b):
+        return {k: b[k] - a.get(k, 0) for k in b
+                if not k.startswith("store_bytes")}
+
+    ref_records = fixtures.reference_records()
+    summary, failures = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as out:
+        common.configure(device=dev, out=out)
+        eng = common.engine()
+        per_artifact = {}
+        accel.reset_launch_counts()
+        t_all = time.perf_counter()
+        for name, mod in bench_run.ALL.items():
+            c0, l0 = counters(eng.analysis), accel.launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                mod.main()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d = delta(c0, counters(eng.analysis))
+            l1 = accel.launch_counts()
+            k1, k4 = l1["replay"] - l0["replay"], l1["place"] - l0["place"]
+            want_k1 = d["replay_batches"] + d["single_replays"]
+            # a core-level driver's own placements, outside the engine's
+            # offload layer, are one K4 launch each
+            direct = getattr(mod, "DIRECT_SELECTIONS", 0)
+            want_k4 = d["offload_builds"] + direct
+            stem = bench_run.stem(name)
+            same = {f: (pathlib.Path(out) / f).read_bytes()
+                    == (fixtures.ARTIFACTS_DIR / f).read_bytes()
+                    for f in (f"{stem}.csv", f"{stem}.json")}
+            per_artifact[name] = dict(wall_s=wall, replay=k1, place=k4,
+                                      byte_identical=all(same.values()),
+                                      **d)
+            print(f"  {name:12s} {wall:7.3f} s  replay {k1:3d} (batches "
+                  f"{d['replay_batches']} + single {d['single_replays']})"
+                  f"  place {k4:3d} (offload builds {d['offload_builds']} "
+                  f"+ direct {direct})  "
+                  f"{'identical' if all(same.values()) else 'DIFFERS'}",
+                  flush=True)
+            if not all(same.values()):
+                failures.append(f"{name}: artifact differs {same}")
+            if k1 != want_k1 or k4 != want_k4:
+                failures.append(f"{name}: launches replay {k1} / place {k4}"
+                                f", builds say {want_k1} / {want_k4}")
+        runner_wall = time.perf_counter() - t_all
+        launches = {k: accel.launch_counts()[k] for k in ("replay", "place")}
+        stats = counters(eng.analysis)
+    print(f"DSE runner: 10 artifacts in {runner_wall:.3f} s wall on "
+          f"{torch.cuda.get_device_name(0)}; launches "
+          + json.dumps(launches) + "; engine " + json.dumps(stats),
+          flush=True)
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the DSE path never launched: "
+                        f"{launches}")
+    sweeps = bench_run.SWEEPS
+    sweep_k4 = sum(per_artifact[n]["place"] for n in sweeps)
+    sweep_builds = sum(per_artifact[n]["offload_builds"] for n in sweeps)
+    if sweep_k4 != sweep_builds:
+        failures.append(f"sweep artifacts: {sweep_k4} placements, "
+                        f"{sweep_builds} offload builds")
+
+    # the full records of each sweep space and the adaptive run
+    t0 = time.perf_counter()
+    for name in sweeps:
+        got = [r.to_dict() for r in eng.run(bench_run.ALL[name].space())]
+        if got != ref_records[name]:
+            failures.append(f"{name}: records differ from the reference")
+    fa = bench_run.ALL["fig_adaptive"]
+    ad = AdaptiveDSE(fa.space(), engine=eng, objectives=fa.OBJECTIVES).run()
+    rounds = [{"round": r.round, "n_candidates": r.n_candidates,
+               "n_priced": r.n_priced, "frontier_size": r.frontier_size,
+               "stable": r.stable} for r in ad.rounds]
+    want = ref_records["adaptive"]
+    adaptive_equal = (rounds == want["rounds"]
+                      and [r.to_dict() for r in ad.frontier]
+                      == want["frontier"]
+                      and [r.to_dict() for r in ad.results]
+                      == want["records"])
+    if not adaptive_equal:
+        failures.append("adaptive run differs from the reference")
+    n_records = sum(len(ref_records[n]) for n in sweeps)
+    print(f"records: {n_records} of the five sweep spaces and "
+          f"{len(want['records'])} of the adaptive run compared (==) in "
+          f"{time.perf_counter() - t0:.3f} s; adaptive priced "
+          f"{[r['n_priced'] for r in rounds]} per round, frontier "
+          f"{len(ad.frontier)}", flush=True)
+
+    # fig14's space from a warm store, and under two process workers
+    space = bench_run.ALL["fig14"].space()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as d:
+        DSEEngine(store=d, device=dev).run(space)
+        accel.reset_launch_counts()
+        t0 = time.perf_counter()
+        warm = DSEEngine(store=d, device=dev).run(space)
+        warm_s = time.perf_counter() - t0
+        warm_launches = accel.launch_counts()
+    print(f"warm store: trace_builds {warm.stats['trace_builds']}, "
+          f"offload_builds {warm.stats['offload_builds']}, launches replay "
+          f"{warm_launches['replay']} place {warm_launches['place']}, "
+          f"{warm_s:.3f} s", flush=True)
+    if (warm.stats["trace_builds"] or warm.stats["offload_builds"]
+            or warm_launches["replay"] or warm_launches["place"]
+            or [r.to_dict() for r in warm] != ref_records["fig14"]):
+        failures.append("warm-store rerun built, replayed, placed or "
+                        "differed")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workers_") as d:
+        peng = DSEEngine(executor="process", max_workers=2, store=d,
+                         device=dev)
+        t0 = time.perf_counter()
+        pres = peng.run(space)
+        proc_s = time.perf_counter() - t0
+    print(f"process executor: 2 workers on the card, {proc_s:.3f} s; "
+          f"worker launches {json.dumps(peng.worker_launches)}; "
+          f"trace_builds {pres.stats['trace_builds']}, offload_builds "
+          f"{pres.stats['offload_builds']}", flush=True)
+    if ([r.to_dict() for r in pres] != ref_records["fig14"]
+            or peng.worker_launches["replay"] != pres.stats["trace_builds"]
+            or peng.worker_launches["place"] != pres.stats["offload_builds"]
+            or min(peng.worker_launches.values()) <= 0):
+        failures.append("process executor: records or worker launches")
+
+    summary.update(per_artifact=per_artifact, runner_wall_s=runner_wall,
+                   launches=launches, engine=stats, rounds=rounds,
+                   adaptive_equal=adaptive_equal, warm_store_s=warm_s,
+                   warm_stats=warm.stats, warm_launches=warm_launches,
+                   process_s=proc_s, process_stats=pres.stats,
+                   worker_launches=peng.worker_launches, failures=failures)
+    return summary, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -1130,7 +1288,19 @@ def main():
                   kernels_path_wall_s=cim_path_s)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
-    # ---------------------------------------------------------- 6. result
+    # ------------------------------------------------ 6. DSE and artifacts
+    dse, dse_launches = dse_phase(dev)
+    print(smi, flush=True)
+    detail["dse"] = dse
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if dse["failures"]:
+        for f in dse["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(dse['failures'])} failures in the DSE phase")
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["dse_launches"] = dse_launches[name]
+
+    # ---------------------------------------------------------- 7. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]
@@ -1151,7 +1321,7 @@ def main():
                           "empty_stream_ms", "all_hit_ns_per_access",
                           "astar_ns_per_access", "device_all_hit_ns_per_access",
                           "device_astar_ns_per_access", "l1_misses",
-                          "main_path_device_ms",
+                          "main_path_device_ms", "dse_launches",
                           "f32_bound_ms", "f32_bound_share",
                           "chain_bound_ms", "share_of_tolerance",
                           "launches_per_prefill",

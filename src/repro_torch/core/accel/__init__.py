@@ -19,24 +19,31 @@ can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 #: the kernels this package launches
 KERNELS = ("segment_sum", "segment_max", "replay", "place")
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# wrappers launch from the DSE engine's pool threads: a count is a
+# read-modify-write, so it takes the lock
+_lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
     """Record one launch of kernel ``name`` (called by its wrapper)."""
-    _launches[name] += 1
+    with _lock:
+        _launches[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return dict(_launches)
+    with _lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0

@@ -25,7 +25,7 @@ from typing import Dict, FrozenSet, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.columnar import ColumnarTrace
+from repro_torch.core.columnar import ColumnarTrace, resolve_device
 from repro_torch.core.isa import OP_CODE, OP_STORE, SRC_REG
 
 # leaf kinds
@@ -177,6 +177,11 @@ class IDGBuilder:
 # ======================================================================
 # Auxiliary producer/consumer indices used by selection + reshaping
 # ======================================================================
+#: the CSR / paired-array tables of a :class:`FlowIndex`, in the reference's
+#: ``to_arrays`` order
+_FLOW_TABLES = ("rc_off", "rc_val", "so_off", "so_val", "ls_seq", "ls_src")
+
+
 class FlowIndex:
     """Derived O(N) flow maps over a trace (built once, reused everywhere).
 
@@ -229,10 +234,40 @@ class FlowIndex:
     def to_arrays(self) -> Dict[str, np.ndarray]:
         """Array dict in the reference's layer-1 encoding."""
         out = {"flow_n": np.asarray([self.n], np.int64)}
-        for name in ("rc_off", "rc_val", "so_off", "so_val", "ls_seq",
-                     "ls_src"):
+        for name in _FLOW_TABLES:
             out[f"flow_{name}"] = getattr(self, name).cpu().numpy()
         return out
+
+    @classmethod
+    def from_arrays(cls, arrays: Dict[str, np.ndarray],
+                    device="cuda") -> "FlowIndex":
+        """Inverse of :meth:`to_arrays`, the tables on ``device``."""
+        dev = resolve_device(device)
+        return cls(int(arrays["flow_n"][0]),
+                   *(torch.from_numpy(np.ascontiguousarray(
+                       arrays[f"flow_{name}"])).to(dev)
+                     for name in _FLOW_TABLES))
+
+    def to(self, device) -> "FlowIndex":
+        """These tables on ``device`` (itself when they already are)."""
+        dev = resolve_device(device)
+        if dev == self.rc_off.device:
+            return self
+        return FlowIndex(self.n, *(getattr(self, name).to(dev)
+                                   for name in _FLOW_TABLES))
+
+    # ---------------------------------------------------------- pickling
+    # the tables pickle as numpy arrays and come back as CPU tensors, so a
+    # pickle never holds a CUDA tensor; :meth:`to` places them
+    def __getstate__(self):
+        return (self.n, *(getattr(self, name).cpu().numpy()
+                          for name in _FLOW_TABLES))
+
+    def __setstate__(self, state):
+        self.n = state[0]
+        for name, arr in zip(_FLOW_TABLES, state[1:]):
+            setattr(self, name, torch.from_numpy(arr))
+        self._py = None
 
 
 def _build_flow_columnar(ct: ColumnarTrace) -> FlowIndex:

@@ -25,6 +25,7 @@ import dataclasses
 import itertools
 from typing import Dict, FrozenSet, Iterator, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.accel.place import place_candidates
@@ -97,6 +98,17 @@ class OffloadResult:
     claimed: Set[int]                  # all removed host instruction seqs
     flow: FlowIndex
     config: OffloadConfig
+
+    # compact pickling: the claimed set covers most of the trace -- a packed
+    # sorted array is ~10x smaller than a pickled set of Python ints
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["claimed"] = np.asarray(sorted(self.claimed), np.int32)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.claimed = set(state["claimed"].tolist())
 
     def macr(self, trace: ColumnarTrace) -> float:
         """Memory-access conversion ratio (the paper's §VI-C metric)."""
@@ -403,6 +415,19 @@ class TraceAnalysis:
 def analyze_trace(tr) -> TraceAnalysis:
     """Build the reusable IDG/flow artifacts for a ``TraceResult``."""
     return TraceAnalysis(tr.trace)
+
+
+def rehydrate_analysis(tr, flow: FlowIndex) -> TraceAnalysis:
+    """Reassemble a :class:`TraceAnalysis` from persisted artifacts.
+
+    The only derived table worth storing is the :class:`FlowIndex`
+    (:class:`IDGBuilder` is a stateless view over the trace), so the
+    analysis store saves ``(TraceResult, FlowIndex)`` and this rebuilds the
+    analysis without re-walking the trace.  ``flow`` lives on the trace's
+    device."""
+    trace = tr.trace
+    trace._struct.setdefault("flow", flow)
+    return TraceAnalysis(trace, flow=flow)
 
 
 def select_candidates(trace: ColumnarTrace,

@@ -44,6 +44,17 @@ class ReshapedTrace:
     def n_cim_ops(self) -> int:
         return sum(len(g.op_classes) for g in self.cim_groups)
 
+    # ``host_seqs`` pickles as a numpy array and comes back as a CPU
+    # tensor, so a pickle never holds a CUDA tensor
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["host_seqs"] = self.host_seqs.cpu().numpy()
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.host_seqs = torch.from_numpy(state["host_seqs"])
+
 
 def reshape(trace: ColumnarTrace, result: OffloadResult) -> ReshapedTrace:
     claimed = result.claimed

@@ -11,6 +11,13 @@ reports for every design point of :data:`CACHES` x :data:`LEVEL_SETS` x
 :data:`TECHS`, plus each geometry's replay counters.
 
 Both are written by ``python tests/test_torch_fixtures.py --regenerate``.
+
+``fixtures/reference_artifacts/`` holds the reference's paper artifacts
+(each of ``repro_torch.bench.run.ALL`` as a ``.csv`` and a ``.json``, as
+``python -m benchmarks.run`` writes them) and ``records.json``: the full
+``SweepRecord.to_dict()`` records of the fig14–17 and fig_adaptive spaces,
+and the adaptive run's records, frontier and rounds on fig_adaptive's
+space.  ``python tests/test_torch_bench.py --regenerate`` writes them.
 """
 from __future__ import annotations
 
@@ -32,6 +39,9 @@ from repro_torch.core.trace import (StructuralTrace,
 
 FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "fixtures"
 REPORTS_PATH = FIXTURE_DIR / "reference_reports.json"
+ARTIFACTS_DIR = FIXTURE_DIR / "reference_artifacts"
+RECORDS_PATH = ARTIFACTS_DIR / "records.json"
+
 
 WORKLOADS = ("NB", "DT", "SVM", "LiR", "KM", "LCS", "M2D", "BFS", "DFS",
              "BC", "SSSP", "CCOMP", "PRANK", "astar", "h264ref", "hmmer",
@@ -79,6 +89,12 @@ def load_structural(name: str, device="cuda") -> StructuralTrace:
 def reference_reports() -> dict:
     """The golden reports (see module docstring)."""
     return json.loads(REPORTS_PATH.read_text())
+
+
+def reference_records() -> dict:
+    """The reference's sweep records and adaptive run (see module
+    docstring)."""
+    return json.loads(RECORDS_PATH.read_text())
 
 
 def report_record(rep: SystemReport) -> Dict[str, float]:

@@ -216,6 +216,59 @@ def test_design_points_on_the_card_equal_reference_reports(cuda, name):
     assert launches["segment_sum"] == launches["segment_max"] == 0
 
 
+# ------------------------------------------------- DSE engine on the card
+def _fig14_space():
+    from repro_torch.bench import fig14_cache_cfg
+    return fig14_cache_cfg.space()
+
+
+@pytest.mark.parametrize("executor", ["thread", "serial"])
+def test_engine_sweep_on_the_card_equals_reference_records(cuda, executor):
+    from repro_torch.dse import DSEEngine
+
+    accel.reset_launch_counts()
+    eng = DSEEngine(executor=executor, device=cuda)
+    res = eng.run(_fig14_space())
+    launches = accel.launch_counts()
+    assert [r.to_dict() for r in res] == fixtures.reference_records()["fig14"]
+    cache = eng.analysis
+    # thread: one batched replay per workload; serial: one per geometry
+    assert cache.replay_batches == (9 if executor == "thread" else 0)
+    assert launches["replay"] == cache.replay_batches \
+        + cache.single_replays > 0
+    assert launches["place"] == cache.offload_builds == 27
+    for tr in cache._traces.values():
+        assert tr.trace.device.type == "cuda"
+
+
+def test_warm_store_on_the_card_launches_nothing(cuda, tmp_path):
+    from repro_torch.dse import DSEEngine
+
+    space = _fig14_space()
+    cold = DSEEngine(store=tmp_path, device=cuda).run(space)
+    accel.reset_launch_counts()
+    warm = DSEEngine(store=tmp_path, device=cuda).run(space)
+    assert warm.stats["trace_builds"] == warm.stats["offload_builds"] == 0
+    assert accel.launch_counts()["replay"] == 0
+    assert accel.launch_counts()["place"] == 0
+    assert [r.to_dict() for r in warm] == [r.to_dict() for r in cold] == \
+        fixtures.reference_records()["fig14"]
+
+
+def test_process_workers_on_the_card_launch_the_kernels(cuda, tmp_path):
+    from repro_torch.dse import DSEEngine, SweepSpace
+
+    space = SweepSpace(workloads=("NB", "DT"),
+                       caches=("32K+256K", "64K+256K", "64K+2M"))
+    eng = DSEEngine(executor="process", max_workers=2, store=tmp_path,
+                    device=cuda)
+    res = eng.run(space)
+    assert [r.to_dict() for r in res] == \
+        fixtures.reference_records()["fig14"][:6]
+    assert eng.worker_launches["replay"] == res.stats["trace_builds"] == 6
+    assert eng.worker_launches["place"] == res.stats["offload_builds"] == 6
+
+
 # ------------------------------------------------------------ placement
 LEVEL_SETS = (("L1", "L2"), ("L1",), ("L2",))
 

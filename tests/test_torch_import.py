@@ -86,6 +86,60 @@ def test_kernel_package_runs_with_jax_repro_and_triton_blocked():
                               "flash_attention", "mlstm_chunkwise"]
 
 
+_BLOCKED_DSE = r"""
+import json, pathlib, sys, tempfile
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+from repro_torch.bench import run
+from repro_torch.dse import DSEEngine, SweepSpace
+from repro_torch.workloads import fixtures
+res = DSEEngine(device="cpu").run(
+    SweepSpace(workloads=("NB",), caches=("32K+256K", "64K+256K", "64K+2M")))
+out = pathlib.Path(tempfile.mkdtemp())
+rc = run.main(["--device", "cpu", "--out", str(out), "table3", "fig14"])
+same = {f: (out / f).read_bytes() == (fixtures.ARTIFACTS_DIR / f).read_bytes()
+        for stem in ("table3_energy", "fig14_cache_cfg")
+        for f in (stem + ".csv", stem + ".json")}
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"records": [r.to_dict() for r in res], "rc": rc,
+                  "same": same, "loaded": loaded}))
+"""
+
+
+def test_dse_and_runner_run_with_jax_repro_and_triton_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_DSE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["rc"] == 0
+    assert out["same"] == dict.fromkeys(
+        ("table3_energy.csv", "table3_energy.json", "fig14_cache_cfg.csv",
+         "fig14_cache_cfg.json"), True)
+    # fig14's space is workload-major: its first three records are NB's
+    golden = json.loads((ROOT / "src/repro_torch/workloads/fixtures/"
+                         "reference_artifacts/records.json").read_text())
+    assert out["records"] == golden["fig14"][:3]
+
+
+def test_dse_and_runner_on_cuda_without_a_card_raise(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='cuda' is valid here")
+    from repro_torch.bench import run
+    from repro_torch.dse import AnalysisCache, DSEEngine
+
+    for make in (DSEEngine, AnalysisCache,
+                 lambda: DSEEngine(executor="process")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["--out", str(tmp_path), "fig14"])
+    assert not list(tmp_path.iterdir())
+
+
 _FORBIDDEN = re.compile(r"\bimport jax\b|\bfrom jax\b|\bimport repro\b"
                         r"|\bimport triton\b|\bfrom triton\b"
                         r"|\bfrom repro\.")
