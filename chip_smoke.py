@@ -34,7 +34,15 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   on an all-hit stream, in CUDA events and on the device
                   alone (``torch.profiler``), its ns per access on the
                   all-hit and astar streams, and its latency floors;
-  4. main path -- the 17 trace fixtures priced on the card: one batched
+  3b. trace frontend -- each of the 17 Table-IV workloads built
+                  (``repro_torch.workloads.build``) and run on the port's
+                  trace VM (``trace_structural``, a dispatch-mode
+                  interpreter on the host, columns on the card): every
+                  array of its columns compared (==) with the committed
+                  reference trace, integer outputs ==, float outputs within
+                  1e-4; per workload its instruction count and seconds,
+                  then the total;
+  4. main path -- the 17 VM traces priced on the card: one batched
                   replay per workload over the Fig. 14 geometries, Algorithm 1
                   per Fig. 15 CiM level set (placement: one launch per
                   geometry), pricing per Fig. 16 technology: 306 design
@@ -62,7 +70,8 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   the tolerance of f32 and bf16 attention;
   6. DSE and artifacts -- the paper artifacts through the port's runner
                   (``repro_torch.bench``: table3/5, fig12/13, table6,
-                  fig14–17, fig_adaptive) on the card, one engine, into a
+                  fig14–17, fig_adaptive) on the card, one cold engine that
+                  traces each workload on the VM, into a
                   temporary directory: each CSV and JSON byte-identical to
                   the committed reference artifact; the full records of
                   the fig14–17 and fig_adaptive spaces and the adaptive run
@@ -686,6 +695,69 @@ def cim_kernels_phase(dev):
     return table, launches, path_s
 
 
+def trace_phase(dev):
+    """Phase 3b: each workload traced on the port's VM, its columns on
+    ``dev``, held to the committed reference trace.  Returns
+    ({name: StructuralTrace}, summary for the detail file)."""
+    import numpy as np
+    from repro_torch.core.trace import trace_structural
+    from repro_torch.workloads import build, fixtures
+
+    traces, per_workload, failures = {}, {}, []
+    t_all = time.perf_counter()
+    for name in fixtures.WORKLOADS:
+        t0 = time.perf_counter()
+        fn, args = build(name)
+        st = trace_structural(fn, *args, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        traces[name] = st
+        want = fixtures.load_arrays(name)
+        have = st.columns.to_arrays()
+        bad = [k for k in have if have[k].dtype != want[k].dtype
+               or not np.array_equal(have[k], want[k])]
+        n_out = int(want["meta_n_outputs"][0])
+        if len(st.outputs) != n_out:
+            bad.append(f"{len(st.outputs)} outputs, want {n_out}")
+        for i, out in enumerate(st.outputs[:n_out]):
+            got, ref = out.numpy(), want[f"out_{i}"]
+            if ref.dtype.kind == "f":
+                ok = got.shape == ref.shape and bool(
+                    np.all(np.abs(got - ref) <= 1e-4 + 1e-4 * np.abs(ref)))
+            else:
+                ok = got.dtype == ref.dtype and np.array_equal(got, ref)
+            if not ok:
+                bad.append(f"out_{i}")
+        per_workload[name] = dict(seconds=secs,
+                                  instructions=st.n_instructions,
+                                  differs=bad)
+        print(f"  {name:8s} {st.n_instructions:6d} instructions "
+              f"{secs:7.3f} s  {'== reference' if not bad else bad}",
+              flush=True)
+        if bad:
+            failures.append(f"{name}: {bad}")
+    total = time.perf_counter() - t_all
+    n_inst = sum(v["instructions"] for v in per_workload.values())
+    print(f"trace frontend: {len(traces)} workloads, {n_inst} instructions "
+          f"in {total:.3f} s (host), columns on "
+          f"{torch.cuda.get_device_name(0)}; "
+          f"{len(traces) - len(failures)} of {len(traces)} == reference",
+          flush=True)
+    return traces, dict(per_workload=per_workload, total_s=total,
+                        instructions=n_inst, failures=failures)
+
+
+def fresh(st):
+    """``st`` with the same columns and an empty derived-table memo, so a
+    second sweep builds its IDG and flow tables anew."""
+    from repro_torch.core.columnar import COLUMNS, ColumnarTrace
+    from repro_torch.core.trace import StructuralTrace
+    ct = st.columns
+    return StructuralTrace(ColumnarTrace(
+        ct.n, n_regs=ct.n_regs, **{c: getattr(ct, c) for c in COLUMNS}),
+        st.outputs)
+
+
 def dse_phase(dev):
     """Phase 6: the paper artifacts, the sweep records, the adaptive run,
     a warm store and the process executor, all on ``dev``.  Returns
@@ -1204,6 +1276,14 @@ def main():
           f"{call_ms:.4f} ms (host clock); bound {place_bound:.6f} ms "
           f"({place_by})", flush=True)
 
+    # ------------------------------------------------ 3b. trace frontend
+    traces, trace_detail = trace_phase(dev)
+    detail["trace_frontend"] = trace_detail
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if trace_detail["failures"]:
+        fail(f"trace frontend differs from the reference: "
+             f"{trace_detail['failures']}")
+
     # ------------------------------------------------------- 4. main path
     golden = fixtures.reference_reports()["workloads"]
     stage = {}
@@ -1214,7 +1294,7 @@ def main():
     t0 = time.perf_counter()
     for name in fixtures.WORKLOADS:
         w0 = time.perf_counter()
-        st = fixtures.load_structural(name, device=dev)
+        st = traces[name]
         records, counters = fixtures.price_design_points(
             st, device=dev, stage_seconds=stage)
         ref = golden[name]
@@ -1254,8 +1334,7 @@ def main():
     # kernel, and the device's busy share of the traced sweep's wall time
     def sweep():
         for name in fixtures.WORKLOADS:
-            fixtures.price_design_points(
-                fixtures.load_structural(name, device=dev), device=dev)
+            fixtures.price_design_points(fresh(traces[name]), device=dev)
 
     events, traced_wall = device_ms_by_kernel(sweep)
     busy = sum(ms for ms, _ in events.values())

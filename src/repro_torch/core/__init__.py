@@ -1,11 +1,12 @@
 """Eva-CiM core, ported: the per-design-point pipeline (paper Fig. 1).
 
-    structural trace -> attach_cache_results_batch (replay per geometry)
+    trace_structural (trace VM) -> attach_cache_results_batch (replay per
+        geometry)
         -> select_candidates (IDG / flow, Algorithm 1) -> reshape
         -> profile_system (energy improvement, speedup, MACR)
 
-Twin of ``repro.core``.  The trace VM is not ported yet: structural
-traces come from :mod:`repro_torch.workloads.fixtures`.
+Twin of ``repro.core``.  ``trace_structural`` / ``trace_program`` run a
+torch program on the trace VM (:mod:`repro_torch.core.trace`).
 """
 from repro_torch.core.cache import (CacheConfig, CacheHierarchy, L1_32K,
                                     L1_64K, L2_256K, L2_2M, SPM_1M)
@@ -19,9 +20,10 @@ from repro_torch.core.offload import (Candidate, OffloadConfig,
                                       analyze_trace, select_candidates)
 from repro_torch.core.profiler import Profiler, SystemReport, profile_system
 from repro_torch.core.reshape import ReshapedTrace, reshape
-from repro_torch.core.trace import (StructuralTrace, TraceResult,
-                                    attach_cache_results,
-                                    attach_cache_results_batch)
+from repro_torch.core.trace import (Machine, StructuralTrace, TraceLimits,
+                                    TraceResult, attach_cache_results,
+                                    attach_cache_results_batch,
+                                    trace_program, trace_structural)
 
 __all__ = [
     "CacheConfig", "CacheHierarchy", "L1_32K", "L1_64K", "L2_256K", "L2_2M",
@@ -32,4 +34,5 @@ __all__ = [
     "analyze_trace", "select_candidates", "Profiler", "SystemReport",
     "profile_system", "ReshapedTrace", "reshape", "StructuralTrace",
     "TraceResult", "attach_cache_results", "attach_cache_results_batch",
+    "Machine", "TraceLimits", "trace_program", "trace_structural",
 ]

@@ -24,6 +24,11 @@ The dtypes, and the ``.npz`` layer-1 encoding of :meth:`to_arrays` /
 bridge that turns a reference trace into a port trace.  ``src_val`` stays
 float64 with a kind tag (:func:`decode_imm`).
 
+The trace VM (:mod:`repro_torch.core.trace`) emits into a
+:class:`ColumnarBuilder`: one bit-packed meta word per instruction, packed
+as the reference's builder packs it, unpacked vectorized by
+:meth:`ColumnarBuilder.finish` onto an explicit device.
+
 The structural columns are shared by every geometry variant of one trace
 (:meth:`ColumnarTrace.with_mem_results`), together with the ``_struct``
 memo that holds the derived tables (RUT/IHT, flow index, partitions).
@@ -36,9 +41,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.isa import (DTYPE_TAGS, IMM_BOOL, IMM_INT, LEVELS,
-                                  OPS, OP_LOAD, OP_STORE, SRC_IMM, SRC_REG,
-                                  UNITS, Inst)
+from repro_torch.core.isa import (DTYPE_TAGS, IMM_BOOL, IMM_FLOAT, IMM_INT,
+                                  LEVELS, OPS, OP_LOAD, OP_STORE, SRC_IMM,
+                                  SRC_REG, UNITS, Inst)
 
 #: names of the persistable columns, in the reference's stable order
 COLUMNS = ("op", "unit", "dtype", "dst", "addr", "size", "level", "hit",
@@ -63,6 +68,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# ColumnarBuilder bit-packs (op | unit<<5 | dtype<<9 | (dst+1)<<10 |
+# size<<18) into one smallint per instruction -- fail loudly at import time
+# if a vocabulary ever outgrows its field.
+assert len(OPS) <= 32, "OPS outgrew the 5-bit op field: widen the packing"
+assert len(UNITS) <= 16, "UNITS outgrew the 4-bit unit field"
+#: largest register id the packed ``dst`` field (8 bits, +1 offset) holds
+MAX_REG_ID = 254
+
+
+def _imm_kind(v) -> int:
+    if isinstance(v, bool) or isinstance(v, np.bool_):
+        return IMM_BOOL
+    if isinstance(v, (int, np.integer)):
+        return IMM_INT
+    return IMM_FLOAT
+
+
 def decode_imm(val: float, kind: int):
     """float64 storage -> the Python scalar the emitter recorded."""
     if kind == IMM_INT:
@@ -70,6 +92,79 @@ def decode_imm(val: float, kind: int):
     if kind == IMM_BOOL:
         return bool(val)
     return float(val)
+
+
+class ColumnarBuilder:
+    """Append-only column accumulator the trace VM emits into.
+
+    One ``add()`` call per committed instruction: a handful of plain-scalar
+    list appends.  The narrow fields are bit-packed into one Python
+    smallint per instruction (and one per operand) at emission time and
+    unpacked vectorized in :meth:`finish`:
+
+      ``meta``  =  op | unit<<5 | dtype<<9 | (dst+1)<<10 | size<<18
+      ``src``   =  tag | kind<<1   (plus the float64 value list)
+    """
+
+    __slots__ = ("n", "meta", "addr", "src_n", "src_meta", "src_val")
+
+    def __init__(self):
+        self.n = 0
+        self.meta: List[int] = []
+        self.addr: List[int] = []
+        self.src_n: List[int] = []
+        self.src_meta: List[int] = []
+        self.src_val: List[float] = []
+
+    def add(self, op: int, unit: int, dt: int, dst: int, addr: int,
+            size: int, srcs: Tuple[Tuple[int, object], ...]) -> int:
+        """Commit one instruction; returns its sequence index."""
+        seq = self.n
+        self.n = seq + 1
+        self.meta.append(op | unit << 5 | dt << 9 | (dst + 1) << 10
+                         | size << 18)
+        self.addr.append(addr)
+        self.src_n.append(len(srcs))
+        meta_l, val_l = self.src_meta, self.src_val
+        for tag, val in srcs:
+            if tag == SRC_REG:
+                meta_l.append(SRC_REG)
+                val_l.append(val)
+            else:
+                t = type(val)
+                kind = (IMM_INT if t is int else
+                        IMM_FLOAT if t is float else _imm_kind(val))
+                meta_l.append(SRC_IMM | kind << 1)
+                val_l.append(float(val))
+        return seq
+
+    def finish(self, n_regs: int, device="cuda") -> "ColumnarTrace":
+        """The committed columns as a :class:`ColumnarTrace` on ``device``
+        (the reference's dtypes; unpacked on the host, then moved)."""
+        dev = resolve_device(device)
+        n = self.n
+        src_off = np.zeros(n + 1, np.int64)
+        np.cumsum(self.src_n, out=src_off[1:])
+        meta = np.asarray(self.meta, np.int64)
+        src_meta = np.asarray(self.src_meta, np.uint8)
+        cols = {
+            "op": (meta & 31).astype(np.int16),
+            "unit": ((meta >> 5) & 15).astype(np.int8),
+            "dtype": ((meta >> 9) & 1).astype(np.int8),
+            "dst": (((meta >> 10) & 255) - 1).astype(np.int32),
+            "addr": np.asarray(self.addr, np.int64),
+            "size": (meta >> 18).astype(np.int16),
+            "level": np.zeros(n, np.int8),
+            "hit": np.full(n, -1, np.int8),
+            "bank": np.full(n, -1, np.int16),
+            "mshr": np.zeros(n, bool),
+            "src_off": src_off,
+            "src_tag": src_meta & 1,
+            "src_val": np.asarray(self.src_val, np.float64),
+            "src_kind": (src_meta >> 1).astype(np.int8),
+        }
+        return ColumnarTrace(n=n, n_regs=n_regs, **{
+            c: torch.from_numpy(a).to(dev) for c, a in cols.items()})
 
 
 class ColumnarTrace(Sequence):

@@ -6,7 +6,8 @@ splits into phases with very different dependence on the swept axes:
   ========================  =====================  ========================
   phase                     depends on             where it runs
   ========================  =====================  ========================
-  structural trace          workload only          committed fixture, once
+  structural trace          workload only          trace VM on the host,
+                                                   once per workload
   cache replay              + cache geometry       replay kernel (K1), one
                                                    launch per workload
   candidate selection       + cim_levels/cim_set   partition on the host,
@@ -16,7 +17,7 @@ splits into phases with very different dependence on the swept axes:
 
 :class:`AnalysisCache` memoizes the layers by their exact dependence keys
 — including a per-workload structural-trace memo above layer 1, so a
-Fig. 14 geometry sweep loads each program once and only replays its
+Fig. 14 geometry sweep traces each program once and only replays its
 access stream per geometry — so a Fig. 16 technology sweep re-runs nothing
 but pricing, and a Fig. 15 level sweep re-runs placement only.  Backing
 the cache with a persistent :class:`~repro_torch.dse.store.AnalysisStore`
@@ -29,9 +30,11 @@ in SweepPoint order.
 Both classes take ``device`` (default ``"cuda"``, which raises without a
 card): every trace, flow table and selection they build or load lives
 there, so on the card the replay and placement kernels run under the
-engine, and on ``"cpu"`` their plain versions.  Until the port's trace
-frontend lands (ROADMAP Queue 1 item 4), a workload's structural trace is
-its committed fixture (:func:`repro_torch.workloads.fixtures.load_structural`).
+engine, and on ``"cpu"`` their plain versions.  A workload's structural
+trace comes from running its torch program
+(:func:`repro_torch.workloads.build`) on the trace VM
+(:func:`repro_torch.core.trace.trace_structural`), with its columns on the
+engine's device.
 
 The counters and their meaning are the reference's under
 ``EVA_CIM_ACCEL=jax``: ``replay_batches`` counts batched replays (one
@@ -64,7 +67,8 @@ from repro_torch.core.offload import (OffloadConfig, OffloadResult,
 from repro_torch.core.reshape import ReshapedTrace, reshape
 from repro_torch.core.trace import (StructuralTrace, TraceResult,
                                     attach_cache_results,
-                                    attach_cache_results_batch)
+                                    attach_cache_results_batch,
+                                    trace_structural)
 from repro_torch.dse.backends import AnalysisBackend, CimBackend
 from repro_torch.dse.results import SweepRecord, SweepResults
 from repro_torch.dse.space import CacheOption, SweepPoint, SweepSpace
@@ -127,9 +131,10 @@ class AnalysisCache:
 
     # ------------------------------------------------------------ layer 1
     def _structural_trace(self, workload: str) -> StructuralTrace:
-        """The geometry-independent trace, loaded once per workload —
-        every cache geometry of a sweep replays its access stream."""
-        from repro_torch.workloads.fixtures import load_structural
+        """The geometry-independent trace, interpreted once per workload —
+        every cache geometry of a sweep replays its access stream instead
+        of re-running the trace VM."""
+        from repro_torch.workloads import build
         skey = ("structural", workload)
         with obs.span("cache.trace_vm", cat="trace", workload=workload) as sp:
             with self._key_lock(skey):
@@ -138,7 +143,8 @@ class AnalysisCache:
                         st = self._structural.get(workload)
                     if st is None:
                         sp.set(source="build")
-                        st = load_structural(workload, device=self.device)
+                        fn, args = build(workload)
+                        st = trace_structural(fn, *args, device=self.device)
                         with self._lock:
                             self._structural[workload] = st
                     else:

@@ -14,7 +14,7 @@ persists the two expensive sweep layers on disk:
   pickle), keyed by the layer-1 key plus the full
   :class:`~repro_torch.core.offload.OffloadConfig`.
 
-Three differences from the reference:
+Two differences from the reference:
 
   * **Namespace.**  Every key spec and file name carries
     :data:`NAMESPACE` where the reference's carry ``cim``, so one directory
@@ -25,10 +25,10 @@ Three differences from the reference:
     :class:`~repro_torch.core.idg.FlowIndex`, ``OffloadResult`` and
     ``ReshapedTrace`` pickle their tensors as numpy), and a load places
     them on the device the caller names.
-  * **Fingerprint.**  The reference hashes the workload builder's source;
-    until the port's trace frontend lands (ROADMAP Queue 1 item 4) a
-    workload *is* its committed trace, so :func:`workload_fingerprint`
-    hashes ``workloads/fixtures/<NAME>.npz``.
+
+:func:`workload_fingerprint` hashes the port's workload module, as the
+reference hashes its own, so a persisted analysis goes stale when its
+program changes.
 
 The generic backend blobs (``load_blob`` / ``save_blob``) serve only the
 sampled and TPU backends, which wait for ROADMAP Queue 1 items 6 and 8.
@@ -50,6 +50,7 @@ Durability rules, as in the reference:
 from __future__ import annotations
 
 import hashlib
+import inspect
 import io
 import json
 import os
@@ -104,19 +105,23 @@ _FINGERPRINTS: Dict[str, str] = {}
 
 
 def workload_fingerprint(workload: str) -> str:
-    """Content hash of a workload: its name + its committed trace file.
+    """Content hash of a workload: its name + the builder module's source.
 
-    Regenerating a workload's fixture invalidates every persisted analysis
-    of it.  An unknown workload degrades to a name-only fingerprint."""
+    Editing any code in the module that defines the workload's program
+    invalidates every persisted analysis of it.  Unknown workloads (or
+    unreadable source) degrade to a name-only fingerprint."""
     cached = _FINGERPRINTS.get(workload)
     if cached is not None:
         return cached
-    from repro_torch.workloads.fixtures import FIXTURE_DIR
+    src = ""
     try:
-        data = (FIXTURE_DIR / f"{workload}.npz").read_bytes()
-    except OSError:
-        data = b""
-    digest = hashlib.sha256(f"{workload}\n".encode() + data).hexdigest()[:16]
+        from repro_torch.workloads import WORKLOADS
+        builder = WORKLOADS.get(workload)
+        if builder is not None:
+            src = inspect.getsource(inspect.getmodule(builder))
+    except (OSError, TypeError):
+        src = ""
+    digest = hashlib.sha256(f"{workload}\n{src}".encode()).hexdigest()[:16]
     _FINGERPRINTS[workload] = digest
     return digest
 

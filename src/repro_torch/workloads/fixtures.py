@@ -1,10 +1,13 @@
-"""Committed structural traces of the 17 Table-IV workloads.
+"""Committed reference traces of the 17 Table-IV workloads: the oracle.
 
-Stands in for ``repro/workloads/__init__.py::build`` plus the reference's
-trace VM until the port's trace frontend lands (ROADMAP Queue 1), and goes
-away with it.  ``fixtures/<NAME>.npz`` holds, for each workload, the
-reference trace's layer-1 columns (``ColumnarTrace.to_arrays()``), the
-program outputs (``out_<i>``) and ``meta_*`` entries: the trace-VM and
+The port traces its own programs (:mod:`repro_torch.workloads`, the trace
+VM of :mod:`repro_torch.core.trace`); the engine never reads these files.
+They hold what the reference's VM commits, so the tests and
+``chip_smoke.py`` can compare the port's VM with it where jax is absent
+(the card's machine may have none).  ``fixtures/<NAME>.npz`` holds, for
+each workload, the reference trace's layer-1 columns
+(``ColumnarTrace.to_arrays()``), the program outputs (``out_<i>``) and
+``meta_*`` entries: the trace-VM and
 analysis versions, the jax version that traced it and the instruction
 count.  ``fixtures/reference_reports.json`` holds the reference's priced
 reports for every design point of :data:`CACHES` x :data:`LEVEL_SETS` x
@@ -77,7 +80,8 @@ def load_arrays(name: str) -> Dict[str, np.ndarray]:
 
 
 def load_structural(name: str, device="cuda") -> StructuralTrace:
-    """The reference's structural trace of workload ``name`` on ``device``."""
+    """The reference's structural trace of workload ``name`` on ``device``
+    (the oracle: the engine traces the port's program instead)."""
     dev = resolve_device(device)
     arrays = load_arrays(name)
     n_out = int(arrays["meta_n_outputs"][0])

@@ -1,7 +1,7 @@
 """The port's trace fixtures against fresh reference traces.
 
-``src/repro_torch/workloads/fixtures/`` stands in for the trace frontend
-the port does not have yet: one ``<NAME>.npz`` per Table-IV workload (the
+``src/repro_torch/workloads/fixtures/`` is the oracle the port's trace VM
+is held to where jax is absent: one ``<NAME>.npz`` per Table-IV workload (the
 reference's structural columns in its layer-1 ``.npz`` encoding, the
 program outputs, and ``meta_*`` versions) and ``reference_reports.json``
 (the reference's numpy-backend reports for every fig14 geometry x fig15

@@ -125,6 +125,35 @@ def test_dse_and_runner_run_with_jax_repro_and_triton_blocked():
     assert out["records"] == golden["fig14"][:3]
 
 
+_BLOCKED_TRACE = r"""
+import json, sys
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+import numpy as np
+from repro_torch.core.trace import trace_structural
+from repro_torch.workloads import build, fixtures
+same = {}
+for name in ("DFS", "M2D"):
+    st = trace_structural(*build(name)[:1], *build(name)[1], device="cpu")
+    have, want = st.columns.to_arrays(), fixtures.load_arrays(name)
+    same[name] = all(np.array_equal(have[k], want[k]) for k in have)
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"same": same, "loaded": loaded}))
+"""
+
+
+def test_trace_vm_runs_with_jax_repro_and_triton_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_TRACE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["same"] == {"DFS": True, "M2D": True}
+
+
 def test_dse_and_runner_on_cuda_without_a_card_raise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device='cuda' is valid here")

@@ -70,7 +70,7 @@ def test_keys_are_content_addressed(tmp_path):
         "NB", CACHE.levels)
     assert k2 != store.layer2_key("NB", CACHE.levels,
                                   OffloadConfig(cim_levels=("L1",)))
-    # a workload's fingerprint is its committed trace
+    # a workload's fingerprint is its program's source
     assert workload_fingerprint("NB") != workload_fingerprint("KM")
     assert workload_fingerprint("NB") == workload_fingerprint("NB")
 
