@@ -81,7 +81,20 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   count equal to the builds that caused it; fig14's space
                   again from a warm store (no replay, no placement) and
                   under the process executor, two workers on the card;
-  7. result    -- the kernel table as one JSON line, the nvidia-smi line,
+  7. sampling  -- the sampled pipeline through the sampled ``CimBackend``
+                  (``repro_torch.core.sampling``) on the card: the 17
+                  workloads under the default spec in both modes (each plan
+                  one full window), records == the reference's; KM@256
+                  (7.6M virtual instructions) under the sampling
+                  benchmark's synthetic spec in both modes, its plan,
+                  marks, windowed columns (sha256), estimate and record ==
+                  the reference's, with the ``sampling.*`` span seconds,
+                  the skim rate and the replay/placement launches (one
+                  replay; one placement per measured window with
+                  candidates); the replay
+                  kernel == ``CacheHierarchy.replay`` on KM@256's windowed
+                  stream, and the sampled path's device time per kernel;
+  8. result    -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -901,6 +914,165 @@ def dse_phase(dev):
     return summary, launches
 
 
+def sampling_phase(dev):
+    """Phase 7: the sampled pipeline on ``dev`` through the sampled
+    ``CimBackend``: the 17 workloads under the default spec (full
+    coverage) and KM@256 under the benchmark's synthetic spec, both modes,
+    held (==) to the reference's committed results; K1 held (==) to the
+    plain replay on KM@256's windowed stream.  Returns (summary for the
+    detail file, this phase's replay/place launches, K1's comparison)."""
+    from repro_torch import obs
+    from repro_torch.bench.sampling import SYNTH_SPEC
+    from repro_torch.core import accel
+    from repro_torch.core.accel.replay import replay_columns_batch
+    from repro_torch.core.cache import L1_32K, L2_256K, CacheHierarchy
+    from repro_torch.core.isa import OP_STORE
+    from repro_torch.core.offload import OffloadConfig
+    from repro_torch.core.sampling import (SamplingSpec, attach_sampled,
+                                           price_sampled, select_sampled)
+    from repro_torch.dse import CimBackend, DSEEngine, SweepSpace
+    from repro_torch.workloads import fixtures
+
+    want = fixtures.reference_sampled()
+    modes = ("stratified", "phase")
+    failures, summary = [], {"suite": {}, "synthetic": {}}
+    launches = dict.fromkeys(MAIN_PATH_KERNELS, 0)
+
+    def counted(fn):
+        accel.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: accel.launch_counts()[k] for k in MAIN_PATH_KERNELS}
+        for k in MAIN_PATH_KERNELS:
+            launches[k] += got[k]
+        return out, got
+
+    # (a) the 17 workloads, default spec: each plan is one full window
+    techs = tuple(want["suite"]["techs"])
+    for mode in modes:
+        eng = DSEEngine(device=dev, backend=CimBackend(
+            sampling=SamplingSpec(mode=mode)))
+        t0 = time.perf_counter()
+        res, got = counted(lambda: eng.run(SweepSpace(
+            workloads=fixtures.WORKLOADS, techs=techs)))
+        secs = time.perf_counter() - t0
+        recs = [r.to_dict() for r in res]
+        ref_recs = want["suite"]["records"][mode]
+        equal = sum(a == b for a, b in zip(recs, ref_recs))
+        n = len(ref_recs)
+        summary["suite"][mode] = dict(seconds=secs, records=len(recs),
+                                      equal=equal, launches=got,
+                                      stats=res.stats)
+        print(f"  suite {mode:10s} {len(recs)} records, {equal} of {n} == "
+              f"reference, {secs:.3f} s; launches {json.dumps(got)}",
+              flush=True)
+        if len(recs) != n or equal != n:
+            failures.append(f"suite {mode}: {equal} of {n} records equal")
+
+    # (b) KM@256 under the synthetic spec, through the engine; its memoized
+    # artifacts give the plan, the windows and the estimate
+    levels = (L1_32K, L2_256K)
+    for mode in modes:
+        spec = SamplingSpec(mode=mode, **SYNTH_SPEC)
+        backend = CimBackend(sampling=spec)
+        eng = DSEEngine(device=dev, backend=backend)
+        space = SweepSpace(workloads=("KM@256",))
+        tracer = obs.enable()
+        t0 = time.perf_counter()
+        res, got = counted(lambda: eng.run(space))
+        secs = time.perf_counter() - t0
+        spans = {}
+        for sp in tracer.spans():
+            if sp["name"].startswith("sampling."):
+                key = sp["name"].split(".", 1)[1]
+                spans[key] = spans.get(key, 0.0) + sp["dur_ns"] / 1e9
+        obs.disable()
+        (point,) = space.points()
+        sa = backend.analyze(eng.analysis, point)
+        selections = backend.select(eng.analysis, point, sa)
+        est = price_sampled(sa, selections, spec)
+        ss = sa.structural
+        # a window whose partition holds no candidate places nothing
+        n_placed = sum(1 for result, _ in selections if result.candidates)
+        have = fixtures.sampled_summary(ss, est)
+        have["record"] = res.records[0].to_dict()
+        ref = want["synthetic"]["modes"][mode]
+        differs = [k for k in ref if have.get(k) != ref[k]]
+        n_measured = len(ss.measured_marks())
+        summary["synthetic"][mode] = dict(
+            seconds=secs, span_seconds=spans, skim_rate=ss.skim_rate,
+            rows=have["rows"], marks=len(ss.marks), measured=n_measured,
+            placed=n_placed, launches=got, differs=differs, metrics=est.metrics, ci=est.ci)
+        print(f"  KM@256 {mode:10s} {have['rows']} rows in {len(ss.marks)} "
+              f"marks ({n_measured} measured, {n_placed} with "
+              f"candidates), {secs:.3f} s wall; spans "
+              + json.dumps({k: round(v, 3) for k, v in spans.items()})
+              + f"; skim {ss.skim_rate:,.0f} virtual instr/s; launches "
+              + json.dumps(got) + "; "
+              + ("== reference" if not differs else f"DIFFERS {differs}"),
+              flush=True)
+        if differs:
+            failures.append(f"KM@256 {mode}: {differs} differ")
+        if got != {"replay": 1, "place": n_placed}:
+            failures.append(f"KM@256 {mode}: launches {got}, want one "
+                            f"replay and {n_placed} placements (the "
+                            f"measured windows with candidates)")
+
+    # K1 on KM@256's windowed stream (stratified) against the plain
+    # replay, then the device time of the sampled path's K1 and K4 launches
+    spec = SamplingSpec(mode="stratified", **SYNTH_SPEC)
+    backend = CimBackend(sampling=spec)
+    eng = DSEEngine(device=dev, backend=backend)
+    (point,) = SweepSpace(workloads=("KM@256",)).points()
+    ss = backend.analyze(eng.analysis, point).structural
+    ct = ss.trace("cpu")
+    mem = torch.nonzero(ct.mem_mask).flatten()
+    addrs, is_w = ct.addr[mem], ct.op[mem] == OP_STORE
+    hier = CacheHierarchy(levels)
+    t0 = time.perf_counter()
+    plain = hier.replay(addrs, is_w)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    addrs_d, is_w_d = addrs.to(dev), is_w.to(dev)
+    (got_k1,) = replay_columns_batch(addrs_d, is_w_d, [levels])
+    torch.cuda.synchronize()
+    k1_equal = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                   for a, b in zip(got_k1[:4], plain)) \
+        and got_k1[4] == hier.counters()
+    k1_ms = event_ms(lambda: replay_columns_batch(addrs_d, is_w_d,
+                                                  [levels]), 5)
+    l1_misses = hier.counters()[f"{levels[0].name}_misses"]
+    k1_bound, k1_bound_by = bytes_bound_ms(
+        addrs.numel() * (addrs.element_size() + is_w.element_size()
+                         + sum(c.element_size() for c in got_k1[:4])), 0)
+    print(f"  K1 on KM@256's windowed stream: {addrs.numel()} accesses, "
+          f"{l1_misses} first-level misses, "
+          f"{'== plain' if k1_equal else 'DIFFERS from plain'}; kernel "
+          f"{k1_ms:.4f} ms (events), plain {plain_ms:.1f} ms (host), "
+          f"bound {k1_bound:.6f} ms ({k1_bound_by})", flush=True)
+    if not k1_equal:
+        failures.append("K1 differs from CacheHierarchy.replay on KM@256's "
+                        "windowed stream")
+
+    events, _ = device_ms_by_kernel(
+        lambda: select_sampled(attach_sampled(ss, levels, device=dev),
+                               OffloadConfig()))
+    device_ms = {}
+    for name in MAIN_PATH_KERNELS:
+        hits = [(ms, n) for key, (ms, n) in events.items()
+                if f"{name}_kernel" in key]
+        device_ms[name] = dict(device_ms=sum(ms for ms, _ in hits),
+                               launches=sum(n for _, n in hits))
+    print("  sampled path on the device (KM@256, stratified): "
+          + json.dumps({k: {x: round(y, 4) for x, y in v.items()}
+                        for k, v in device_ms.items()}), flush=True)
+    summary.update(k1=dict(accesses=addrs.numel(), l1_misses=l1_misses,
+                           equal=k1_equal, ms=k1_ms, plain_ms=plain_ms,
+                           bound_ms=k1_bound, bound_by=k1_bound_by),
+                   device_ms=device_ms, launches=launches,
+                   failures=failures)
+    return summary, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -1379,7 +1551,22 @@ def main():
     for name in MAIN_PATH_KERNELS:
         kernels[name]["dse_launches"] = dse_launches[name]
 
-    # ---------------------------------------------------------- 7. result
+    # ------------------------------------------------------- 7. sampling
+    sampled, sampled_launches = sampling_phase(dev)
+    detail["sampling"] = sampled
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if sampled["failures"]:
+        for f in sampled["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(sampled['failures'])} failures in the sampling phase")
+    for name in MAIN_PATH_KERNELS:
+        if sampled_launches[name] <= 0:
+            fail(f"kernel {name} was never launched on the sampled path")
+        kernels[name]["sampled_launches"] = sampled_launches[name]
+        kernels[name]["sampled_device_ms"] = sampled["device_ms"][name]
+    kernels["replay"]["sampled_stream"] = sampled["k1"]
+
+    # ---------------------------------------------------------- 8. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]
@@ -1401,6 +1588,8 @@ def main():
                           "astar_ns_per_access", "device_all_hit_ns_per_access",
                           "device_astar_ns_per_access", "l1_misses",
                           "main_path_device_ms", "dse_launches",
+                          "sampled_launches", "sampled_device_ms",
+                          "sampled_stream",
                           "f32_bound_ms", "f32_bound_share",
                           "chain_bound_ms", "share_of_tolerance",
                           "launches_per_prefill",

@@ -7,11 +7,14 @@ Twin of ``benchmarks/run.py``::
     python -m repro_torch.bench --device cpu table6  # the plain versions
     python -m repro_torch.bench --out DIR fig17      # else build/bench_torch
     python -m repro_torch.bench --list               # enumerate artifacts
+    python -m repro_torch.bench sampling [...]       # the sampling bench
 
 Each artifact's CSV and JSON are byte for byte what ``python -m
-benchmarks.run`` writes for the same name.  ``analysis_timing``,
-``tpu_macr``, ``fig_tpu_dse``, ``roofline``, ``bench_sampling`` and
-``bench_service`` wait for ROADMAP Queue 1 items 6 to 8.
+benchmarks.run`` writes for the same name.  ``sampling`` is not an
+artifact: it runs :mod:`repro_torch.bench.sampling` (the twin of
+``benchmarks/bench_sampling.py``) with the arguments that follow it.
+``analysis_timing``, ``tpu_macr``, ``fig_tpu_dse``, ``roofline`` and
+``bench_service`` wait for ROADMAP Queue 1 items 3, 7 and 8.
 """
 from __future__ import annotations
 
@@ -58,7 +61,11 @@ def main(argv=None) -> int:
                     help="enumerate the artifacts and exit")
     ap.add_argument("names", nargs="*", metavar="name",
                     help=f"artifacts to write (default: all of {list(ALL)})")
-    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["sampling"]:
+        from repro_torch.bench import sampling
+        return sampling.main(argv[1:])
+    args = ap.parse_args(argv)
     if args.list:
         for name, mod in ALL.items():
             doc = next(iter((mod.__doc__ or "").strip().splitlines()), "")

@@ -1473,24 +1473,21 @@ class TraceResult:
         return self.trace.mem_accesses()
 
 
-def trace_structural(fn: Callable, *args, n_regs: int = 24,
-                     limits: TraceLimits = TraceLimits(),
-                     device="cuda") -> StructuralTrace:
-    """Lower ``fn(*args)`` to the structural instruction columns, on
-    ``device`` (no cache model involved -- the stream is identical under
-    every geometry).
+def run_program(vm: TraceInterpreter, fn: Callable, *args) -> List[Value]:
+    """Run ``fn(*args)`` eagerly under ``vm``; returns the Values of its
+    output leaves.
 
     ``args`` (tensors, any pytree) are the program's memory-resident
     inputs, stored first in argument order; then the arrays ``fn`` closes
     over, listed in ``fn.consts`` (a 0-d one is an immediate), as the
-    reference stores a jaxpr's constants after its inputs.  The program
-    runs on the host; only the finished columns move to ``device``."""
-    dev = resolve_device(device)
+    reference stores a jaxpr's constants after its inputs.  Every pass of
+    the VM over a program (:func:`trace_structural`, the sampling skim and
+    windowed passes) binds its inputs here, so all of them walk one
+    virtual instruction stream."""
+    machine = vm.m
     leaves, spec = pytree.tree_flatten(args)
     leaves = [a.detach().cpu() if isinstance(a, torch.Tensor)
               else torch.as_tensor(a) for a in leaves]
-    machine = Machine(n_regs=n_regs, limits=limits)
-    vm = TraceInterpreter(machine)
     for a in leaves:
         vm.bind(a, machine.store_const(_host(a)))
     for c in getattr(fn, "consts", ()):
@@ -1499,10 +1496,25 @@ def trace_structural(fn: Callable, *args, n_regs: int = 24,
                 else machine.store_const(arr))
     with vm:
         outs = fn(*pytree.tree_unflatten(leaves, spec))
+    return [vm.value(o) for o in pytree.tree_leaves(outs)]
+
+
+def trace_structural(fn: Callable, *args, n_regs: int = 24,
+                     limits: TraceLimits = TraceLimits(),
+                     device="cuda") -> StructuralTrace:
+    """Lower ``fn(*args)`` to the structural instruction columns, on
+    ``device`` (no cache model involved -- the stream is identical under
+    every geometry).
+
+    Inputs and constants are stored as :func:`run_program` says.  The
+    program runs on the host; only the finished columns move to
+    ``device``."""
+    dev = resolve_device(device)
+    machine = Machine(n_regs=n_regs, limits=limits)
+    outs = run_program(TraceInterpreter(machine), fn, *args)
     return StructuralTrace(
         machine.b.finish(machine.n_regs, device=dev),
-        [torch.from_numpy(np.array(vm.value(o).data))
-         for o in pytree.tree_leaves(outs)])
+        [torch.from_numpy(np.array(v.data)) for v in outs])
 
 
 def attach_cache_results(st: StructuralTrace,

@@ -55,7 +55,8 @@ import threading
 import time
 import weakref
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 from repro_torch import obs
 from repro_torch.core import accel
@@ -104,6 +105,7 @@ class AnalysisCache:
         self._traces: Dict[Tuple, TraceResult] = {}
         self._analyses: Dict[Tuple, TraceAnalysis] = {}
         self._offloads: Dict[Tuple, Tuple[OffloadResult, ReshapedTrace]] = {}
+        self._blobs: Dict[Tuple, Any] = {}        # generic backend artifacts
         self._key_locks: Dict[Tuple, threading.Lock] = {}
         self.trace_builds = 0
         self.trace_hits = 0
@@ -321,6 +323,55 @@ class AnalysisCache:
                 return result, reshaped
             finally:
                 self._prune_lock(key)
+
+    # ---------------------------------------------------- generic artifacts
+    def artifact(self, layer: int, key: Tuple, build: Callable[[], Any],
+                 store_spec: Optional[dict] = None) -> Any:
+        """Backend-agnostic layered memo (the sampled pipeline's pieces).
+
+        ``layer`` picks the counter pair the lookup accounts under — 1 for
+        the expensive analysis phase (``trace_builds``/``trace_hits``), 2
+        for selection (``offload_builds``/``offload_hits``).
+        ``store_spec`` (a JSON-able key spec that must include the
+        backend's name + version stamps) additionally persists the
+        artifact through the :class:`~repro_torch.dse.store.AnalysisStore`:
+        store loads count as neither build nor memo hit, mirroring the CiM
+        layers, so ``trace_builds == 0`` still means "a warm run did no
+        analysis work".  Per-key build locks: concurrent misses build
+        once."""
+        builds, hits = (("trace_builds", "trace_hits") if layer == 1
+                        else ("offload_builds", "offload_hits"))
+        full_key = (layer,) + key
+        with obs.span(f"cache.artifact.l{layer}",
+                      cat=("analysis" if layer == 1 else "select"),
+                      layer=layer, key=str(key[:2])) as sp, \
+                self._key_lock(("blob",) + full_key):
+            try:
+                with self._lock:
+                    if full_key in self._blobs:
+                        setattr(self, hits, getattr(self, hits) + 1)
+                        sp.set(source="memo")
+                        return self._blobs[full_key]
+                if self.store is not None and store_spec is not None:
+                    payload = self.store.load_blob(layer, store_spec)
+                    if payload is not None:
+                        value = payload["artifact"]
+                        with self._lock:
+                            self._blobs[full_key] = value
+                        sp.set(source="store")
+                        return value
+                with self._lock:
+                    setattr(self, builds, getattr(self, builds) + 1)
+                sp.set(source="build")
+                value = build()
+                with self._lock:
+                    self._blobs[full_key] = value
+                if self.store is not None and store_spec is not None:
+                    self.store.save_blob(layer, store_spec,
+                                         {"artifact": value})
+                return value
+            finally:
+                self._prune_lock(("blob",) + full_key)
 
     def stats(self) -> Dict[str, int]:
         out = {"trace_builds": self.trace_builds,

@@ -65,11 +65,18 @@ class SweepRecord:
     # provenance: which refinement round priced this point (0 = the coarse
     # seed sweep; one-shot sweeps leave it 0)
     round: int = 0
-    # which analysis backend priced it: the port has only the CiM one.
-    # The reference's sampled records add a sampling key and three CI
-    # columns, which come back with the sampled pipeline (ROADMAP Queue 1
-    # item 6); its exact records, the ones the port makes, omit them.
+    # which analysis backend priced it: the port has only the CiM one
     backend: str = "cim"
+    # sampling identity: "exact", or the SamplingSpec.key() the metrics
+    # were estimated under; sampled records carry bootstrap CI half-widths
+    # for the three headline metrics (repro_torch.core.sampling.estimate)
+    sampling: str = "exact"
+    energy_improvement_ci: float = 0.0
+    speedup_ci: float = 0.0
+    macr_ci: float = 0.0
+
+    _SAMPLING_KEYS = ("sampling", "energy_improvement_ci", "speedup_ci",
+                      "macr_ci")
 
     @classmethod
     def from_report(cls, point: SweepPoint, rep: SystemReport,
@@ -111,7 +118,14 @@ class SweepRecord:
         )
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """Exact records drop the sampling columns entirely, so every
+        pre-sampling artifact (fig12–17 JSON, sweep reports) stays
+        byte-identical; sampled records carry them."""
+        d = dataclasses.asdict(self)
+        if self.sampling == "exact":
+            for k in self._SAMPLING_KEYS:
+                del d[k]
+        return d
 
     @property
     def config_label(self) -> str:

@@ -30,8 +30,10 @@ Two differences from the reference:
 reference hashes its own, so a persisted analysis goes stale when its
 program changes.
 
-The generic backend blobs (``load_blob`` / ``save_blob``) serve only the
-sampled and TPU backends, which wait for ROADMAP Queue 1 items 6 and 8.
+The generic backend blobs (:meth:`AnalysisStore.load_blob` /
+:meth:`~AnalysisStore.save_blob`) persist what a backend builds outside
+the two CiM layers -- today the sampled pipeline's geometry-independent
+artifact -- under a key spec the caller owns, in the same namespace.
 
 Durability rules, as in the reference:
 
@@ -268,6 +270,37 @@ class AnalysisStore:
         # filenames lead with the namespace so disk usage is attributable
         # by name (`stats()["store_bytes_cimtorch"]`)
         return self.root / f"layer{layer}" / f"{NAMESPACE}-{key}.{suffix}"
+
+    # ------------------------------------------------- generic backend blobs
+    # Backends persist their own artifacts through these: the caller owns
+    # the key spec (and must mix in its backend name + version stamps --
+    # see repro_torch.dse.backends), the store owns addressing, atomic
+    # writes, verification, and the hit/miss/write counters.  The spec's
+    # "backend" field keeps specs of different backends apart; the file
+    # name leads with the namespace, as every artifact's does.
+    def load_blob(self, layer: int, spec: dict) -> Optional[dict]:
+        key = self._key({"layer": layer, **spec})
+        path = self._path(layer, key)
+        # span dur covers read + zlib inflate + pickle (see _read)
+        with obs.span("store.load_blob", cat="store", layer=layer,
+                      backend=str(spec.get("backend", "blob"))) as sp:
+            payload = self._read(path, key)
+            if payload is None:
+                self._bump("l1_misses" if layer == 1 else "l2_misses")
+                sp.set(hit=False)
+                return None
+            self._bump("l1_hits" if layer == 1 else "l2_hits")
+            sp.set(hit=True, bytes=_fsize(path))
+            return payload
+
+    def save_blob(self, layer: int, spec: dict, payload: dict) -> None:
+        key = self._key({"layer": layer, **spec})
+        path = self._path(layer, key)
+        # span dur covers pickle + zlib deflate + atomic publish
+        with obs.span("store.save_blob", cat="store", layer=layer,
+                      backend=str(spec.get("backend", "blob"))) as sp:
+            self._write(path, key, payload)
+            sp.set(bytes=_fsize(path))
 
     # ---------------------------------------------------------------- io
     def _read(self, path: pathlib.Path, expect_key: str) -> Optional[dict]:

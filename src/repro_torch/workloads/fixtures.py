@@ -21,9 +21,18 @@ Both are written by ``python tests/test_torch_fixtures.py --regenerate``.
 ``SweepRecord.to_dict()`` records of the fig14–17 and fig_adaptive spaces,
 and the adaptive run's records, frontier and rounds on fig_adaptive's
 space.  ``python tests/test_torch_bench.py --regenerate`` writes them.
+
+``fixtures/reference_sampled.json`` holds the reference's sampled
+pipeline (``repro.core.sampling``): for ``KM@256`` under the sampling
+benchmark's ``SYNTH_SPEC`` (:mod:`repro_torch.bench.sampling`) in both
+modes, the plan, the marks, the row count, one
+sha256 per windowed column and the estimate (:func:`sampled_summary`);
+and the 17 workloads' sampled sweep records under the default spec, both
+modes.  ``python tests/test_torch_sampling.py --regenerate`` writes it.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import time
@@ -44,6 +53,7 @@ FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "fixtures"
 REPORTS_PATH = FIXTURE_DIR / "reference_reports.json"
 ARTIFACTS_DIR = FIXTURE_DIR / "reference_artifacts"
 RECORDS_PATH = ARTIFACTS_DIR / "records.json"
+SAMPLED_PATH = FIXTURE_DIR / "reference_sampled.json"
 
 
 WORKLOADS = ("NB", "DT", "SVM", "LiR", "KM", "LCS", "M2D", "BFS", "DFS",
@@ -99,6 +109,45 @@ def reference_records() -> dict:
     """The reference's sweep records and adaptive run (see module
     docstring)."""
     return json.loads(RECORDS_PATH.read_text())
+
+
+def reference_sampled() -> dict:
+    """The committed reference sampled pipeline (see module doc)."""
+    return json.loads(SAMPLED_PATH.read_text())
+
+
+def column_digests(columns: Dict[str, np.ndarray]) -> Dict[str, list]:
+    """``[dtype, shape, sha256 of the bytes]`` per column of a
+    ``to_arrays()`` dict."""
+    out = {}
+    for name in sorted(columns):
+        a = np.ascontiguousarray(columns[name])
+        out[name] = [a.dtype.str, list(a.shape),
+                     hashlib.sha256(a.tobytes()).hexdigest()]
+    return out
+
+
+def sampled_summary(ss, est) -> dict:
+    """What the sampled fixture holds of one sampled pipeline run: the
+    plan, the marks, the windowed columns' row count and digests, and the
+    estimate, as JSON values.  ``ss`` is a ``SampledStructural`` and
+    ``est`` a ``SampledEstimate`` of either package."""
+    plan = ss.plan
+    return json.loads(json.dumps({
+        "plan": {"interval": plan.interval,
+                 "total_virtual": plan.total_virtual,
+                 "n_intervals": plan.n_intervals, "full": plan.full,
+                 "picks": [list(p) for p in plan.picks],
+                 "windows": [list(w) for w in plan.windows()],
+                 "weights": plan.weights().tolist()},
+        "marks": [list(m) for m in ss.marks],
+        "measured": list(ss.measured),
+        "rows": int(len(ss.columns["col_op"])),
+        "columns": column_digests(ss.columns),
+        "estimate": {"totals": est.totals, "metrics": est.metrics,
+                     "ci": est.ci, "n_windows": est.n_windows,
+                     "n_intervals": est.n_intervals},
+    }, default=float))
 
 
 def report_record(rep: SystemReport) -> Dict[str, float]:

@@ -256,17 +256,17 @@ def test_pareto_front_equals_reference_on_hand_built_rows():
 
 
 def test_tpu_and_sampled_sweeps_are_refused_not_priced_as_cim():
-    """The port prices CiM points exactly; a TPU axis or a sampling knob
-    is refused where it is given, so no record is labelled with one."""
+    """No backend of the port prices a TPU point, so the TPU axis is
+    refused where it is given and no record is labelled with one.  The
+    sampling knob is priced by the sampled pipeline: the port's records
+    have the reference's fields, sampling key and CI columns included, in
+    the reference's order and with its defaults."""
     with pytest.raises(TypeError, match="tpus"):
         port.SweepSpace(workloads=("NB",), tpus=("v5e",))
-    with pytest.raises(TypeError, match="sampling"):
-        port.CimBackend(sampling="stratified")
-    exact = {f.name for f in dataclasses.fields(ref.SweepRecord)} - {
-        "sampling", "energy_improvement_ci", "speedup_ci", "macr_ci"}
-    assert [f.name for f in dataclasses.fields(port.SweepRecord)] == [
-        f.name for f in dataclasses.fields(ref.SweepRecord)
-        if f.name in exact]
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        port.SweepRecord)] == [(f.name, f.default) for f in
+                               dataclasses.fields(ref.SweepRecord)]
+    assert port.SweepRecord._SAMPLING_KEYS == ref.SweepRecord._SAMPLING_KEYS
 
 
 def test_engine_rejects_bad_arguments(tmp_path):

@@ -154,6 +154,47 @@ def test_trace_vm_runs_with_jax_repro_and_triton_blocked():
     assert out["same"] == {"DFS": True, "M2D": True}
 
 
+_BLOCKED_SAMPLING = r"""
+import json, pathlib, sys, tempfile
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+from repro_torch.bench import run
+from repro_torch.core.sampling import SamplingSpec, sampled_structural
+from repro_torch.dse import CimBackend, DSEEngine, SweepSpace
+from repro_torch.workloads import fixtures
+want = fixtures.reference_sampled()["suite"]["records"]["phase"]
+res = DSEEngine(device="cpu", backend=CimBackend(
+    sampling=SamplingSpec(mode="phase"))).run(
+        SweepSpace(workloads=("NB",), techs=("sram", "fefet")))
+spec = SamplingSpec(mode="stratified", interval=256, budget=4, warmup=256)
+ss = sampled_structural("KM@4", spec)
+out = pathlib.Path(tempfile.mkdtemp()) / "sampling.json"
+rc = run.main(["sampling", "--device", "cpu", "--workloads", "NB",
+               "--synthetic", "KM@2", "--json", str(out), "--no-check"])
+doc = json.loads(out.read_text())
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"same": [r.to_dict() for r in res]
+                          == [r for r in want if r["workload"] == "NB"],
+                  "windows": len(ss.plan.picks), "rc": rc,
+                  "suite_err": doc["suite"]["worst_rel_err"],
+                  "loaded": loaded}))
+"""
+
+
+def test_sampling_runs_with_jax_repro_and_triton_blocked():
+    """The sampled pipeline, the sampled engine and ``python -m
+    repro_torch.bench sampling`` import nothing of the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SAMPLING],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"same": True, "windows": 4, "rc": 0, "suite_err": 0.0,
+                   "loaded": []}
+
+
 def test_dse_and_runner_on_cuda_without_a_card_raise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device='cuda' is valid here")
@@ -166,6 +207,8 @@ def test_dse_and_runner_on_cuda_without_a_card_raise(tmp_path):
             make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(["--out", str(tmp_path), "fig14"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["sampling", "--json", str(tmp_path / "s.json")])
     assert not list(tmp_path.iterdir())
 
 
@@ -205,6 +248,13 @@ def test_cuda_device_without_a_card_raises():
         profile_system(tr, OffloadConfig())
     # the CPU run of the same calls works
     assert profile_system(tr, OffloadConfig(), device="cpu").macr > 0
+    from repro_torch.core.sampling import (SamplingSpec, attach_sampled,
+                                           sampled_structural)
+    ss = sampled_structural("hmmer", SamplingSpec(mode="stratified"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attach_sampled(ss, fixtures.CACHES["32K+256K"])
+    assert attach_sampled(ss, fixtures.CACHES["32K+256K"],
+                          device="cpu").windows[0].trace.n > 0
     # the kernels' own wrappers: a CPU tensor takes the plain version
     out = replay_columns_batch(torch.zeros(3, dtype=torch.int64),
                                torch.zeros(3, dtype=torch.bool),
