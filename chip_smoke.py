@@ -94,7 +94,26 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   candidates); the replay
                   kernel == ``CacheHierarchy.replay`` on KM@256's windowed
                   stream, and the sampled path's device time per kernel;
-  8. result    -- the kernel table as one JSON line, the nvidia-smi line,
+  9. service   -- the port's DSE daemon (``repro_torch.dse.service``) on
+                  the card: the service benchmark's storm (8 clients x 2
+                  requests over NB and LCS, ``python -m repro_torch.bench
+                  service``'s defaults) against an in-process daemon: 384
+                  points requested, 36 evaluated (== unique keys), dedup
+                  10.667, at least one coalesced, 16 distinct trace ids,
+                  a warm repeat with no build, evaluation or launch; one
+                  request's Chrome trace (``chiprun_out/service_trace.json``)
+                  and the storm's stage attribution; the fig14–17 spaces as
+                  ``/v1/sweep`` requests, records == the reference's, and
+                  again warm (no launch); fig_adaptive through the
+                  service's event stream (in process: its 128K+2M geometry
+                  has no preset name), rounds, frontier and records == the
+                  reference's, and its preset part over HTTP, each record
+                  == the reference's exhaustive one; KM@256 sampled
+                  (stratified), record == the reference's; every replay
+                  and placement launch equal to the builds that caused it;
+                  a ``python -m repro_torch.dse.service`` process answering
+                  one sweep and exiting 0 on SIGTERM;
+  10. result   -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -107,6 +126,7 @@ import contextlib
 import ctypes
 import io
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -1073,6 +1093,341 @@ def sampling_phase(dev):
     return summary, launches
 
 
+def _strict_json(records):
+    """Reference records as the service sends them: non-finite floats
+    become null (``records_json``)."""
+    import math
+    return [{k: (None if isinstance(v, float) and not math.isfinite(v)
+                 else v) for k, v in r.items()} for r in records]
+
+
+def _space_doc(space):
+    """A sweep space of preset names as a request document (raises where
+    an axis value has no name in the wire vocabulary)."""
+    from repro_torch.dse import CACHE_PRESETS, HOST_PRESETS, LEVEL_PRESETS
+
+    caches = [c.name for c in space.caches]
+    hosts = [h.name for h in space.hosts if h is not None]
+    if (any(c.name not in CACHE_PRESETS
+            or CACHE_PRESETS[c.name] != c.levels for c in space.caches)
+            or any(lv not in LEVEL_PRESETS for lv in space.cim_levels)
+            or any(HOST_PRESETS.get(h.name) != h.model
+                   for h in space.hosts if h is not None)
+            or (hosts and len(hosts) != len(space.hosts))):
+        raise ValueError("the space has a value the wire vocabulary cannot "
+                         "name")
+    doc = {"workloads": list(space.workloads), "caches": caches,
+           "cim_levels": list(space.cim_levels),
+           "techs": list(space.techs), "cim_sets": list(space.cim_sets)}
+    if hosts:
+        doc["hosts"] = hosts
+    return doc
+
+
+def _serve_subprocess(dev):
+    """``python -m repro_torch.dse.service --port 0 --device cuda`` as a
+    process of its own: one sweep, then SIGTERM.  Returns (record of the
+    sweep, exit code, its output, seconds from start to exit)."""
+    import queue
+    import signal
+    import threading
+    from repro_torch.dse.service import ServiceClient
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.dse.service", "--port", "0",
+         "--device", str(dev)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+
+    def read():
+        for ln in proc.stdout:
+            lines.put(ln)
+        lines.put(None)                      # the process closed its output
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    out, record = [], None
+    try:
+        while True:
+            line = lines.get(timeout=120)
+            if line is None:
+                raise RuntimeError("the daemon process ended before "
+                                   "serving: " + "".join(out)[-2000:])
+            out.append(line)
+            m = re.search(r"serving on (http://\S+)", line)
+            if m:
+                break
+        client = ServiceClient(m.group(1))
+        client.wait_ready(60)
+        (record,) = client.sweep(["NB"]).records
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    while not lines.empty():
+        line = lines.get()
+        if line is not None:
+            out.append(line)
+    return record, rc, "".join(out), time.perf_counter() - t0
+
+
+def service_phase(dev, smi):
+    """Phase 9: the port's DSE daemon on ``dev`` (``repro_torch.dse.
+    service``): the service benchmark's storm, the fig14–17 spaces as
+    ``/v1/sweep`` requests, fig_adaptive as an adaptive request, KM@256
+    sampled, each held (==) to the reference's records; the replay and
+    placement launches against the builds that caused them; a warm repeat
+    that launches nothing; a daemon process stopped by SIGTERM; one
+    request's Chrome trace and the storm's stage attribution.  Returns
+    (summary for the detail file, the phase's replay/place launches)."""
+    from repro_torch import obs
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench import service as bench_service
+    from repro_torch.bench.sampling import SYNTH_SPEC
+    from repro_torch.core import accel
+    from repro_torch.core.sampling import SamplingSpec
+    from repro_torch.dse import CimBackend, SweepSpace
+    from repro_torch.dse.service import ServiceClient, running_server
+    from repro_torch.workloads import fixtures
+
+    failures, summary = [], {}
+    ref_records = fixtures.reference_records()
+    if obs.tracer() is not None:
+        failures.append("a tracer was left installed before the service "
+                        "phase; it would take the service's spans")
+
+    def builds(cache):
+        return dict(replay_batches=cache.replay_batches,
+                    single_replays=cache.single_replays,
+                    offload_builds=cache.offload_builds,
+                    trace_builds=cache.trace_builds)
+
+    def counted(cache, fn):
+        """fn() with the launches and exact-path builds it caused."""
+        b0, l0 = builds(cache), accel.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        b1, l1 = builds(cache), accel.launch_counts()
+        return out, {k: l1[k] - l0[k] for k in MAIN_PATH_KERNELS}, \
+            {k: b1[k] - b0[k] for k in b1}
+
+    def check_launches(what, got, d):
+        want = {"replay": d["replay_batches"] + d["single_replays"],
+                "place": d["offload_builds"]}
+        if got != want:
+            failures.append(f"{what}: launches {got}, builds say {want}")
+
+    accel.reset_launch_counts()
+    t_phase = time.perf_counter()
+    with running_server(max_workers=4, device=dev) as (url, svc):
+        cache = svc.analysis_cache("cim")
+        client = ServiceClient(url)
+
+        # (a) the storm at the service benchmark's defaults
+        storm, got, d = counted(cache, lambda: bench_service.run(
+            url=url, service=svc, device=dev))
+        pts, warm = storm["points"], storm["warm_repeat"]
+        print(f"  storm: {storm['n_requests']} requests from "
+              f"{storm['clients']} clients in {storm['storm_wall_s']:.3f} s "
+              f"({storm['requests_per_s']:.3f} req/s), latency p50 "
+              f"{storm['latency_s']['p50']:.4f} s p99 "
+              f"{storm['latency_s']['p99']:.4f} s; points "
+              + json.dumps(pts) + f", dedup {storm['dedup_ratio']}; "
+              f"launches {json.dumps(storm['storm_launches'])}, builds "
+              f"{json.dumps(storm['storm_builds'])}; kernels compiled / "
+              f"loaded during the storm: "
+              f"{json.dumps(storm['kernels_during_storm'])}; warm "
+              f"repeat " + json.dumps(warm), flush=True)
+        failures += [f"storm: {f}" for f in bench_service.check(storm)]
+        if ((pts["requested"], pts["evaluated"], pts["unique_keys"])
+                != (384, 36, 36) or storm["dedup_ratio"] != 10.667
+                or warm["trace_builds"] or warm["evaluated"]
+                or any(warm["launches"].values())
+                or storm["tracing"].get("distinct_ids") != 16):
+            failures.append(f"storm counts: {pts}, dedup "
+                            f"{storm['dedup_ratio']}, warm {warm}, tracing "
+                            f"{storm['tracing']}")
+        check_launches("storm, probe and warm repeat", got, d)
+
+        # one request's Chrome trace; the storm's stage attribution
+        spans = svc.buffered_spans()
+        ids = set(storm["tracing"]["trace_ids"])
+        storm_spans = [s for s in spans if s["trace_id"] in ids]
+        last = [s for s in spans
+                if s["trace_id"] == storm["tracing"]["trace_ids"][-1]]
+        path = ROOT / "chiprun_out" / "service_trace.json"
+        n_x = obs.export_chrome(last, (), path)
+        doc = json.loads(path.read_text())
+        x_events = sum(e["ph"] == "X" for e in doc["traceEvents"])
+        att = obs.stage_attribution(storm_spans)
+        print(f"  Chrome trace of one storm request: {n_x} X events for "
+              f"{len(last)} spans -> {path.relative_to(ROOT)}", flush=True)
+        print("  storm stage attribution (16 requests):", flush=True)
+        for line in obs.attribution_markdown(att).splitlines():
+            print(f"    {line}", flush=True)
+        if not (n_x == x_events == len(last) > 0):
+            failures.append(f"Chrome export: {n_x} / {x_events} X events "
+                            f"for {len(last)} spans")
+
+        # (b) the fig14–17 spaces as /v1/sweep requests
+        docs = {name: _space_doc(bench_run.ALL[name].space())
+                for name in ("fig14", "fig15", "fig16", "fig17")}
+
+        def sweeps():
+            t0 = time.perf_counter()
+            replies = {name: client.sweep(doc.pop("workloads"), **doc)
+                       for name, doc in json.loads(json.dumps(docs)).items()}
+            return replies, time.perf_counter() - t0
+
+        (replies, sweep_s), sweep_got, sweep_d = counted(cache, sweeps)
+        equal = {name: r.records == _strict_json(ref_records[name])
+                 for name, r in replies.items()}
+        print(f"  fig14-17 spaces: {sum(len(r.records) for r in replies.values())}"
+              f" records in {sweep_s:.3f} s, == reference "
+              + json.dumps(equal) + f"; launches {json.dumps(sweep_got)}, "
+              f"builds {json.dumps(sweep_d)}", flush=True)
+        if not all(equal.values()):
+            failures.append(f"sweep records differ: {equal}")
+        check_launches("fig14-17 sweeps", sweep_got, sweep_d)
+        (again, again_s), again_got, _ = counted(cache, sweeps)
+        print(f"  fig14-17 warm repeat: {again_s:.3f} s, launches "
+              + json.dumps(again_got), flush=True)
+        if any(again_got.values()) or any(
+                a.records != replies[n].records for n, a in again.items()):
+            failures.append(f"warm repeat of the sweeps launched "
+                            f"{again_got} or differed")
+
+        # (c) fig_adaptive: its fourth geometry (128K+2M) is no preset, so
+        # the full space goes through the service's event stream in
+        # process; the preset part of it goes over HTTP
+        fa = bench_run.ALL["fig_adaptive"]
+        req = {"backend": "cim", "mode": "adaptive", "space": fa.space(),
+               "objectives": fa.OBJECTIVES, "max_rounds": 8,
+               "sampling": SamplingSpec()}
+        t0 = time.perf_counter()
+        events, ad_got, ad_d = counted(
+            cache, lambda: list(svc.run_request(req)))
+        ad_s = time.perf_counter() - t0
+        rounds = [{k: e[k] for k in ("round", "n_candidates", "n_priced",
+                                     "frontier_size", "stable")}
+                  for e in events if e["event"] == "round"]
+        want = ref_records["adaptive"]
+        result = events[-1]
+        adaptive_equal = dict(
+            rounds=rounds == want["rounds"],
+            frontier=result["frontier"] == _strict_json(want["frontier"]),
+            records=result["records"] == _strict_json(want["records"]))
+        print(f"  fig_adaptive: {len(rounds)} rounds priced "
+              f"{[r['n_priced'] for r in rounds]} in {ad_s:.3f} s, == "
+              "reference " + json.dumps(adaptive_equal) + "; launches "
+              + json.dumps(ad_got), flush=True)
+        if not all(adaptive_equal.values()):
+            failures.append(f"adaptive differs: {adaptive_equal}")
+        check_launches("fig_adaptive", ad_got, ad_d)
+        preset = fa.space()
+        http_doc = _space_doc(SweepSpace(
+            workloads=preset.workloads,
+            caches=tuple(c.name for c in preset.caches
+                         if c.name in ("32K+256K", "64K+256K", "64K+2M")),
+            cim_levels=preset.cim_levels, techs=preset.techs,
+            hosts=preset.hosts))
+        ident = ("workload", "cache", "cim_levels", "tech", "cim_set", "host")
+        exhaustive = {tuple(r[k] for k in ident): r
+                      for r in _strict_json(ref_records["fig_adaptive"])}
+        streamed, http_got, http_d = counted(cache, lambda: list(
+            client.adaptive_events(http_doc.pop("workloads"),
+                                   objectives=list(fa.OBJECTIVES),
+                                   **http_doc)))
+        http_rounds = [e for e in streamed if e["event"] == "round"]
+        http_recs = streamed[-1]["records"]
+        http_equal = all(
+            dict(r, index=0, round=0)
+            == dict(exhaustive[tuple(r[k] for k in ident)], index=0,
+                    round=0) for r in http_recs)
+        print(f"  fig_adaptive over HTTP (the three preset geometries): "
+              f"{len(http_rounds)} round events, {len(http_recs)} records, "
+              f"each == the reference's exhaustive record: {http_equal}; "
+              f"launches {json.dumps(http_got)}", flush=True)
+        if not (http_equal and http_rounds and http_recs):
+            failures.append("adaptive over HTTP: records differ from the "
+                            "reference's exhaustive sweep")
+        check_launches("fig_adaptive over HTTP", http_got, http_d)
+
+        # (d) KM@256 sampled, stratified, the sampling benchmark's spec
+        spec = SamplingSpec(mode="stratified", **SYNTH_SPEC)
+        t0 = time.perf_counter()
+        sreply, s_got, _ = counted(cache, lambda: client.sweep(
+            ["KM@256"], sampling=spec.to_dict()))
+        s_s = time.perf_counter() - t0
+        backend = CimBackend(sampling=spec)
+        (point,) = SweepSpace(workloads=("KM@256",)).points()
+        sa = backend.analyze(cache, point)
+        n_placed = sum(1 for result, _ in backend.select(cache, point, sa)
+                       if result.candidates)
+        ref_rec = fixtures.reference_sampled()["synthetic"]["modes"][
+            "stratified"]["record"]
+        s_equal = sreply.records == _strict_json([ref_rec])
+        print(f"  KM@256 sampled (stratified): {s_s:.3f} s, record == "
+              f"reference: {s_equal}; launches {json.dumps(s_got)} (one "
+              f"replay, {n_placed} windows with candidates)", flush=True)
+        if not s_equal:
+            failures.append("KM@256 sampled record differs")
+        if s_got != {"replay": 1, "place": n_placed}:
+            failures.append(f"KM@256 sampled: launches {s_got}, want one "
+                            f"replay and {n_placed} placements")
+        metrics = client.metrics()
+    launches = {k: accel.launch_counts()[k] for k in MAIN_PATH_KERNELS}
+    phase_s = time.perf_counter() - t_phase
+    if obs.tracer() is not None:
+        failures.append("the service left its tracer installed")
+
+    # (f) a daemon process of its own, stopped by SIGTERM
+    record, rc, out, proc_s = _serve_subprocess(dev)
+    want_nb = next(r for r in ref_records["fig16"] if r["workload"] == "NB"
+                   and r["tech"] == "sram")
+    proc_ok = (rc == 0 and "[dse.service] clean shutdown" in out
+               and record == dict(_strict_json([want_nb])[0], index=0))
+    print(f"  daemon process: one sweep, SIGTERM, exit code {rc} after "
+          f"{proc_s:.3f} s; record == reference: "
+          f"{record == dict(_strict_json([want_nb])[0], index=0)}; "
+          + " | ".join(ln for ln in out.splitlines()
+                       if ln.startswith("[dse.service]")), flush=True)
+    if not proc_ok:
+        failures.append(f"daemon process: exit {rc}, output {out[-2000:]!r}")
+
+    print(f"service phase: {phase_s:.3f} s wall in process on "
+          f"{torch.cuda.get_device_name(0)}; launches "
+          + json.dumps(launches) + "; storm "
+          f"{storm['requests_per_s']:.3f} req/s, p50 "
+          f"{storm['latency_s']['p50']:.4f} s, p99 "
+          f"{storm['latency_s']['p99']:.4f} s", flush=True)
+    print(smi, flush=True)
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the service path never launched: "
+                        f"{launches}")
+    summary.update(storm=storm, storm_attribution=att,
+                   sweeps=dict(seconds=sweep_s, equal=equal,
+                               launches=sweep_got, builds=sweep_d,
+                               warm_seconds=again_s,
+                               warm_launches=again_got),
+                   adaptive=dict(seconds=ad_s, rounds=rounds,
+                                 equal=adaptive_equal, launches=ad_got,
+                                 http_rounds=len(http_rounds),
+                                 http_records=len(http_recs),
+                                 http_equal=http_equal),
+                   sampled=dict(seconds=s_s, equal=s_equal,
+                                launches=s_got, placed=n_placed),
+                   process=dict(rc=rc, seconds=proc_s, output=out),
+                   metrics=metrics, phase_s=phase_s, launches=launches,
+                   failures=failures)
+    return summary, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -1566,7 +1921,18 @@ def main():
         kernels[name]["sampled_device_ms"] = sampled["device_ms"][name]
     kernels["replay"]["sampled_stream"] = sampled["k1"]
 
-    # ---------------------------------------------------------- 8. result
+    # -------------------------------------------------------- 9. service
+    served, served_launches = service_phase(dev, smi)
+    detail["service"] = served
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if served["failures"]:
+        for f in served["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(served['failures'])} failures in the service phase")
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["service_launches"] = served_launches[name]
+
+    # --------------------------------------------------------- 10. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]
@@ -1589,6 +1955,7 @@ def main():
                           "device_astar_ns_per_access", "l1_misses",
                           "main_path_device_ms", "dse_launches",
                           "sampled_launches", "sampled_device_ms",
+                          "service_launches",
                           "sampled_stream",
                           "f32_bound_ms", "f32_bound_share",
                           "chain_bound_ms", "share_of_tolerance",

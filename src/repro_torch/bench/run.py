@@ -8,13 +8,15 @@ Twin of ``benchmarks/run.py``::
     python -m repro_torch.bench --out DIR fig17      # else build/bench_torch
     python -m repro_torch.bench --list               # enumerate artifacts
     python -m repro_torch.bench sampling [...]       # the sampling bench
+    python -m repro_torch.bench service [...]        # the service bench
 
 Each artifact's CSV and JSON are byte for byte what ``python -m
 benchmarks.run`` writes for the same name.  ``sampling`` is not an
 artifact: it runs :mod:`repro_torch.bench.sampling` (the twin of
-``benchmarks/bench_sampling.py``) with the arguments that follow it.
-``analysis_timing``, ``tpu_macr``, ``fig_tpu_dse``, ``roofline`` and
-``bench_service`` wait for ROADMAP Queue 1 items 3, 7 and 8.
+``benchmarks/bench_sampling.py``) with the arguments that follow it, and
+``service`` likewise runs :mod:`repro_torch.bench.service` (the twin of
+``benchmarks/bench_service.py``).  ``analysis_timing``, ``tpu_macr``,
+``fig_tpu_dse`` and ``roofline`` wait for their ROADMAP Queue 1 items.
 """
 from __future__ import annotations
 
@@ -65,6 +67,9 @@ def main(argv=None) -> int:
     if argv[:1] == ["sampling"]:
         from repro_torch.bench import sampling
         return sampling.main(argv[1:])
+    if argv[:1] == ["service"]:
+        from repro_torch.bench import service
+        return service.main(argv[1:])
     args = ap.parse_args(argv)
     if args.list:
         for name, mod in ALL.items():

@@ -34,8 +34,8 @@ Quickstart::
 Names of ``repro.dse`` that wait for a later slice (ROADMAP Queue 1):
 ``TpuBackend``, ``TpuSelection``, ``TpuWorkloadAnalysis`` and
 ``arch_fingerprint``, with the space's ``tpus`` axis, ``TPU_PRESETS``,
-``TpuOption``, ``tpu_neighbors`` and ``parse_bytes`` (item 8, the
-GPU-mode backend); the DSE service ``repro.dse.service`` (item 7).
+``TpuOption``, ``tpu_neighbors`` and ``parse_bytes`` (item 5, the
+GPU-mode backend).  The DSE service is :mod:`repro_torch.dse.service`.
 A sampled sweep is ``DSEEngine(backend=CimBackend(sampling=spec))`` with
 ``SamplingSpec`` from :mod:`repro_torch.core.sampling`.
 """

@@ -14,7 +14,7 @@ Twin of ``repro/dse/backends.py``, CiM half:
 
 The TPU-mode backend (``TpuBackend``, ``arch_fingerprint``,
 ``TpuSelection``, ``TpuWorkloadAnalysis``) waits for ROADMAP Queue 1 item
-8, which gives :class:`AnalysisBackend` its second implementation.
+5, which gives :class:`AnalysisBackend` its second implementation.
 """
 from __future__ import annotations
 

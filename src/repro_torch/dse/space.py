@@ -3,7 +3,7 @@
 Twin of ``repro/dse/space.py``: the same axes, presets, enumeration order,
 labels and keys, for CiM points.  The reference's TPU-mode axis
 (``tpus``, ``TpuOption``, ``tpu_neighbors``, ``parse_bytes``) comes back with the backend
-that prices it, ROADMAP Queue 1 item 8; a point's ``key`` is the
+that prices it, ROADMAP Queue 1 item 5; a point's ``key`` is the
 reference's without its trailing ``tpu`` (always ``None`` for a CiM point).
 
 Eva-CiM's design space (§VI-D/E, Figs. 14–16) spans five orthogonal axes:

@@ -1,9 +1,7 @@
 """Span tracer: nested wall-clock spans with cross-executor propagation.
 
 Twin of ``repro/obs/tracer.py``: a copy, not an import, so the port never
-loads the JAX package.  The exporters (``repro/obs/export.py``) are not
-ported yet (ROADMAP Queue 1 item 7), so :class:`Tracer` has no
-``export_*`` methods here.
+loads the JAX package.
 
 One process-global :class:`Tracer` (installed with :func:`enable`, removed
 with :func:`disable`) collects finished spans as plain dicts.  Everything
@@ -220,6 +218,21 @@ class Tracer:
             self._spans = [s for s in self._spans
                            if s["trace_id"] != trace_id]
         return taken
+
+    # ------------------------------------------------------------ exports
+    def export_chrome(self, path) -> int:
+        """Write a Chrome trace-event JSON file (Perfetto-loadable);
+        returns the number of span events written."""
+        from repro_torch.obs import export
+        return export.export_chrome(self.spans(), self.counters(), path)
+
+    def export_ndjson(self, path) -> int:
+        from repro_torch.obs import export
+        return export.export_ndjson(self.spans(), path)
+
+    def stage_attribution(self) -> Dict:
+        from repro_torch.obs import export
+        return export.stage_attribution(self.spans())
 
 
 # ======================================================================

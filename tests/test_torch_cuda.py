@@ -636,3 +636,27 @@ def test_mlstm_kernel_chunk_invariance(cuda):
     o128 = ops.mlstm_chunkwise(*args, chunk=128)
     torch.testing.assert_close(o32, o128, atol=F32_MLSTM[0],
                                rtol=F32_MLSTM[1])
+
+
+def test_service_sweep_launches_replay_and_placement(cuda):
+    """One sweep through the port's daemon on the card: its warm pass
+    launches the replay kernel once (one batch of two geometries), its
+    two selections the placement kernel once each, the records equal the
+    same sweep on the CPU, and a warm repeat launches nothing."""
+    from repro_torch.dse.service import ServiceClient, running_server
+
+    req = dict(caches=["32K+256K", "64K+2M"], techs=["sram", "fefet"])
+    with running_server(device="cpu") as (url, _service):
+        want = ServiceClient(url).sweep(["NB"], **req).records
+    with running_server(device="cuda") as (url, service):
+        client = ServiceClient(url)
+        accel.reset_launch_counts()
+        got = client.sweep(["NB"], **req)
+        launches = client.metrics()["accel"]["launches"]
+        cache = service.analysis_cache("cim")
+        assert launches["replay"] == 1 == (cache.replay_batches
+                                           + cache.single_replays)
+        assert launches["place"] == 2 == cache.offload_builds
+        assert got.records == want
+        client.sweep(["NB"], **req)
+        assert client.metrics()["accel"]["launches"] == launches

@@ -263,3 +263,58 @@ def test_cuda_device_without_a_card_raises():
     from repro_torch.kernels import ops
     x = torch.zeros(8, 128, dtype=torch.int32)
     assert ops.cim_bulk(x, x).device.type == "cpu"
+
+
+_BLOCKED_SERVICE = r"""
+import io, json, sys
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+from repro_torch import obs
+from repro_torch.dse.service import ServiceClient, running_server
+from repro_torch.obs import export
+with running_server(device="cpu") as (url, service):
+    reply = ServiceClient(url).sweep(["NB"], techs=["sram", "fefet"])
+    spans = service.buffered_spans()
+buf = io.StringIO()
+n = export.export_chrome(spans, (), buf)
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"records": reply.records, "n_spans": len(spans), "n": n,
+                  "x": sum(e["ph"] == "X" for e in
+                           json.loads(buf.getvalue())["traceEvents"]),
+                  "loaded": loaded}))
+"""
+
+
+def test_service_and_exporters_run_with_jax_repro_and_triton_blocked():
+    """The daemon serves one CPU request, and its spans export, with none
+    of the reference's packages importable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SERVICE],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["n"] == out["x"] == out["n_spans"] > 0
+    golden = json.loads((ROOT / "src/repro_torch/workloads/fixtures/"
+                         "reference_artifacts/records.json").read_text())
+    want = [dict(r, index=i) for i, r in enumerate(
+        r for r in golden["fig16"] if r["workload"] == "NB")]
+    assert len(want) == 2 and out["records"] == want
+
+
+def test_service_entry_points_on_cuda_without_a_card_raise(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='cuda' is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.dse.service",
+                           "--port", "0"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "serving on" not in proc.stdout
+    from repro_torch.bench import run
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["service", "--json", str(tmp_path / "s.json")])
+    assert not list(tmp_path.iterdir())
