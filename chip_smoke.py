@@ -42,14 +42,21 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   reference trace, integer outputs ==, float outputs within
                   1e-4; per workload its instruction count and seconds,
                   then the total;
-  4. main path -- the 17 VM traces priced on the card: one batched
-                  replay per workload over the Fig. 14 geometries, Algorithm 1
-                  per Fig. 15 CiM level set (placement: one launch per
-                  geometry), pricing per Fig. 16 technology: 306 design
-                  points, each compared (==) with the reference's reports,
-                  with the launch counts of every kernel; then the same
-                  sweep again under ``torch.profiler``: each kernel's
-                  summed device time and the device's busy share;
+  4. main path -- the 306 design points of the Fig. 14 geometries x
+                  Fig. 15 CiM level sets x Fig. 16 technologies through
+                  ``DSEEngine.run`` on the card, as a user sweeps them: the
+                  17 programs traced on the VM, one batched replay per
+                  workload, Algorithm 1 per (geometry, level set) with one
+                  placement launch each, pricing per technology; each
+                  record compared (==) with the reference's reports by
+                  (cache, level set, tech), the replay counters too; the
+                  launch counts of every kernel, equal to the engine's
+                  builds; the stage seconds from the engine's spans
+                  (``obs.stage_attribution``, self time per stage, one
+                  pricing thread so they add up to the wall); then the same
+                  sweep again on a fresh engine under ``torch.profiler``:
+                  each kernel's summed device time and the device's busy
+                  share;
   5. kernels path: a prefill's launches at published widths -- the CiM
                   modules of ``repro_torch.kernels`` through ``ops`` only:
                   the 26 attention layers of a gemma3-1b prefill (B=1,
@@ -113,7 +120,25 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   and placement launch equal to the builds that caused it;
                   a ``python -m repro_torch.dse.service`` process answering
                   one sweep and exiting 0 on SIGTERM;
-  10. result   -- the kernel table as one JSON line, the nvidia-smi line,
+  10. entry points -- the single-pass Algorithm 1
+                  (``OffloadConfig(require_same_bank=True)`` and
+                  ``OffloadConfig(allow_cross_level=False,
+                  cim_levels=("L1",))``) on the 17 VM traces at 32K+256K,
+                  priced in SRAM and FeFET: 68 records (candidate digest,
+                  claimed count, the compared report fields) == the
+                  committed ``reference_single_pass.json``, no placement
+                  launch, with the selection seconds of each config beside
+                  the two-phase path's on the same traces;
+                  ``examples/torch_quickstart.py`` and
+                  ``examples/torch_evaluate_workloads.py`` (SRAM, FeFET),
+                  each a process of its own on the card, their lines ==
+                  the reference examples' (the same fixture);
+                  ``examples/torch_dse_cim.py --workload KM --cache-dir``
+                  twice, the second run with no trace or selection build
+                  and no launch; ``python -m repro_torch.bench timing
+                  --workloads NB`` and its doc; each part's replay and
+                  placement launches;
+  11. result   -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -1428,6 +1453,179 @@ def service_phase(dev, smi):
     return summary, launches
 
 
+def _run_entry_point(argv, timeout=600):
+    """Run one of the port's entry points in a process of its own on the
+    card; returns (exit code, stdout, stderr, seconds, the launches its
+    device line reports or None)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    m = re.search(r"replay kernel launches (\d+), placement kernel "
+                  r"launches (\d+)", proc.stdout)
+    launches = (dict(replay=int(m.group(1)), place=int(m.group(2)))
+                if m else None)
+    return proc.returncode, proc.stdout, proc.stderr, secs, launches
+
+
+def entry_points_phase(dev, traces, smi):
+    """Phase 10: the CiM entry points on ``dev``.  The single-pass
+    Algorithm 1 (both placement-dependent configs) on the 17 VM traces at
+    32K+256K against the committed reference records, with its selection
+    seconds beside the two-phase path's on the same traces; the quickstart
+    and evaluate_workloads examples, each in a process of its own, against
+    the reference examples' lines; the dse_cim example twice on one
+    store; ``python -m repro_torch.bench timing --workloads NB``.  Returns
+    (summary for the detail file, the phase's replay/place launches)."""
+    from repro_torch.core import accel
+    from repro_torch.core.offload import OffloadConfig, select_candidates
+    from repro_torch.core.profiler import profile_system
+    from repro_torch.core.reshape import reshape
+    from repro_torch.core.trace import attach_cache_results
+    from repro_torch.workloads import fixtures
+
+    failures = []
+    ref = fixtures.reference_single_pass()
+    want = {(r["workload"], r["config"], r["tech"]): r
+            for r in ref["records"]}
+    levels = fixtures.CACHES[fixtures.SINGLE_PASS_CACHE]
+
+    # (a) single pass: each selection on a fresh copy of the VM trace, so
+    # it builds its own IDG and flow tables, as the two-phase timing does
+    t_phase = time.perf_counter()
+    l0 = accel.launch_counts()
+    select_s = dict.fromkeys((*fixtures.SINGLE_PASS_CONFIGS, "two_phase"),
+                             0.0)
+    two_phase_k4 = 0
+    n_equal = 0
+    got_records = []
+    for name in fixtures.WORKLOADS:
+        for config, kw in (*fixtures.SINGLE_PASS_CONFIGS.items(),
+                           ("two_phase", {})):
+            tr = attach_cache_results(fresh(traces[name]), levels,
+                                      device=dev)
+            cfg = OffloadConfig(**kw)
+            k4 = accel.launch_counts()["place"]
+            t0 = time.perf_counter()
+            res = select_candidates(tr.trace, cfg=cfg, device=dev)
+            torch.cuda.synchronize()
+            select_s[config] += time.perf_counter() - t0
+            placed = accel.launch_counts()["place"] - k4
+            if config == "two_phase":
+                two_phase_k4 += placed
+                continue
+            if placed:
+                failures.append(f"{name}/{config}: the single pass "
+                                f"launched placement {placed} times")
+            shaped = reshape(tr.trace, res)
+            reports = {tech: profile_system(tr, cfg, tech, offload=res,
+                                            reshaped=shaped, device=dev)
+                       for tech in fixtures.TECHS}
+            for rec in fixtures.single_pass_records(name, config, res,
+                                                    reports):
+                got_records.append(rec)
+                if rec == want.get((name, config, rec["tech"])):
+                    n_equal += 1
+                else:
+                    failures.append(f"single pass {name}/{config}/"
+                                    f"{rec['tech']}: {rec}")
+    l1 = accel.launch_counts()
+    sp_launches = {k: l1[k] - l0[k] for k in MAIN_PATH_KERNELS}
+    phase_launches = dict(sp_launches)
+    sp_s = time.perf_counter() - t_phase
+    print(f"single pass: {len(got_records)} records, {n_equal} of "
+          f"{len(ref['records'])} == the reference; selection seconds "
+          + json.dumps({k: round(v, 3) for k, v in select_s.items()})
+          + f" (17 workloads each, 32K+256K, tables and flow built in "
+          f"each); launches {json.dumps(sp_launches)} (place only in the "
+          f"two-phase comparison: {two_phase_k4}); {sp_s:.3f} s", flush=True)
+    if len(got_records) != len(ref["records"]) or \
+            n_equal != len(ref["records"]):
+        failures.append(f"single pass: {n_equal} of {len(got_records)} "
+                        f"equal, {len(ref['records'])} in the fixture")
+    if sp_launches["replay"] <= 0:
+        failures.append("single pass: the replay kernel never launched")
+
+    # (b) the examples, each in a process of its own on the card
+    examples = {}
+    for key, argv, want_lines in (
+            ("quickstart", ["examples/torch_quickstart.py"],
+             ref["examples"]["quickstart"]),
+            *((f"evaluate_workloads_{tech}",
+               ["examples/torch_evaluate_workloads.py", "--tech", tech],
+               ref["examples"]["evaluate_workloads"][tech])
+              for tech in fixtures.TECHS)):
+        rc, out, err, secs, launches = _run_entry_point(argv)
+        same = rc == 0 and fixtures.example_lines(out) == want_lines
+        examples[key] = dict(rc=rc, seconds=secs, equal=same,
+                             launches=launches)
+        print(f"  {key:26s} exit {rc}, {secs:7.3f} s, lines == reference: "
+              f"{same}, launches {json.dumps(launches)}", flush=True)
+        if not same:
+            failures.append(f"{key}: exit {rc}, output {out[-1500:]!r} "
+                            f"{err[-1500:]!r}")
+        if not launches or min(launches.values()) <= 0:
+            failures.append(f"{key}: launches {launches}")
+        for k in MAIN_PATH_KERNELS:
+            phase_launches[k] += (launches or {}).get(k, 0)
+
+    # (c) the dse_cim example twice on one store: the second run traces
+    # nothing and launches nothing
+    store_runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_store_") as d:
+        for _ in range(2):
+            rc, out, err, secs, launches = _run_entry_point(
+                ["examples/torch_dse_cim.py", "--workload", "KM",
+                 "--cache-dir", d])
+            m = re.search(r"trace builds (\d+), selection builds (\d+)",
+                          out)
+            builds = (int(m.group(1)), int(m.group(2))) if m else None
+            store_runs.append(dict(rc=rc, seconds=secs, builds=builds,
+                                   launches=launches))
+            print(f"  dse_cim --workload KM --cache-dir: exit {rc}, "
+                  f"{secs:7.3f} s, (trace, selection) builds {builds}, "
+                  f"launches {json.dumps(launches)}", flush=True)
+            for k in MAIN_PATH_KERNELS:
+                phase_launches[k] += (launches or {}).get(k, 0)
+            if rc != 0:
+                failures.append(f"dse_cim: exit {rc} {err[-1500:]!r}")
+    first, second = store_runs
+    if (first["builds"] is None or first["builds"][0] <= 0
+            or not first["launches"] or min(first["launches"].values()) <= 0
+            or second["builds"] != (0, 0)
+            or second["launches"] != dict(replay=0, place=0)):
+        failures.append(f"dse_cim store runs: {store_runs}")
+
+    # (d) the timing driver
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_timing_") as d:
+        doc_path = pathlib.Path(d) / "timing.json"
+        rc, out, err, secs, _ = _run_entry_point(
+            ["-m", "repro_torch.bench", "timing", "--workloads", "NB",
+             "--json", str(doc_path)])
+        doc = json.loads(doc_path.read_text()) if rc == 0 else None
+    print(f"  bench timing --workloads NB: exit {rc}, {secs:7.3f} s; doc "
+          + json.dumps(doc), flush=True)
+    if doc is None:
+        failures.append(f"bench timing: exit {rc} {err[-1500:]!r}")
+    else:
+        for k in MAIN_PATH_KERNELS:
+            phase_launches[k] += doc["launches"][k]
+        if min(doc["launches"].values()) <= 0 or doc["card"] != smi:
+            failures.append(f"bench timing: launches {doc['launches']}, "
+                            f"card {doc['card']!r}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"entry points: {phase_s:.3f} s on {torch.cuda.get_device_name(0)}"
+          f"; launches " + json.dumps(phase_launches), flush=True)
+    return dict(single_pass=dict(records=len(got_records), equal=n_equal,
+                                 select_s=select_s, launches=sp_launches,
+                                 two_phase_place=two_phase_k4,
+                                 seconds=sp_s),
+                examples=examples, store_runs=store_runs, timing=doc,
+                phase_s=phase_s, launches=phase_launches,
+                failures=failures), phase_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -1620,7 +1818,7 @@ def main():
     # placement under 32K+256K / both
     tr = attach_cache_results_batch(astar, [geos[0]], device=dev)[0]
     cfg = OffloadConfig(cim_levels=("L1", "L2"))
-    select_candidates(tr.trace, cfg, device=dev)   # memoizes the partition
+    select_candidates(tr.trace, cfg=cfg, device=dev)   # memoizes the partition
     part = tr.trace._struct["partitions"][cfg.partition_key()]
     leaf_seq, leaf_off, acc_seq, _, _ = _flat_arrays(part, tr.trace, cfg)
     n_seg = len(part.protos)
@@ -1720,7 +1918,7 @@ def main():
     tr_cpu = attach_cache_results_batch(
         fixtures.load_structural("astar", device="cpu"), [geos[0]],
         device="cpu")[0]
-    select_candidates(tr_cpu.trace, cfg, device="cpu")
+    select_candidates(tr_cpu.trace, cfg=cfg, device="cpu")
     part_cpu = tr_cpu.trace._struct["partitions"][cfg.partition_key()]
     want = place_arrays(part_cpu, tr_cpu.trace, cfg)
     if not torch.equal(place_arrays(part, tr.trace, cfg).cpu(), want):
@@ -1812,40 +2010,52 @@ def main():
              f"{trace_detail['failures']}")
 
     # ------------------------------------------------------- 4. main path
+    # the 306 design points through DSEEngine.run, as a user sweeps them:
+    # the default thread executor (one batched replay per workload) with
+    # one pricing thread, so the spans' self times telescope to the wall
+    from repro_torch import obs
+    from repro_torch.dse import DSEEngine
     golden = fixtures.reference_reports()["workloads"]
-    stage = {}
-    per_workload = {}
-    n_rec = n_equal = 0
-    mismatches = []
+    space = fixtures.design_point_space()
     accel.reset_launch_counts()
+    tracer = obs.enable(obs.Tracer())
     t0 = time.perf_counter()
-    for name in fixtures.WORKLOADS:
-        w0 = time.perf_counter()
-        st = traces[name]
-        records, counters = fixtures.price_design_points(
-            st, device=dev, stage_seconds=stage)
-        ref = golden[name]
-        n_rec += len(records)
-        for a, b in zip(records, ref["records"]):
-            if a == b:
-                n_equal += 1
-            else:
-                mismatches.append((name, a, b))
-        if len(records) != len(ref["records"]):
-            mismatches.append((name, "record count", len(records)))
-        if counters != ref["counters"]:
-            mismatches.append((name, "counters", counters))
-        per_workload[name] = time.perf_counter() - w0
+    eng = DSEEngine(max_workers=1, device=dev)
+    results = eng.run(space)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    obs.disable()
     launches = accel.launch_counts()
-    print(f"main path: {n_rec} records, {n_equal} equal, "
-          f"{n_rec - n_equal} mismatched; {wall:.2f} s wall", flush=True)
-    print("stage seconds: " + json.dumps(
-        {k: round(v, 3) for k, v in stage.items()}), flush=True)
+    att = obs.stage_attribution(tracer.spans())
+    stage = {cat: st["self_s"] for cat, st in att["stages"].items()}
+    per_workload = {w: sum(per.values())
+                    for w, per in att["workloads"].items()}
+    n_rec = n_equal = 0
+    mismatches = []
+    for name, (records, counters) in fixtures.engine_design_points(
+            eng, results).items():
+        want = fixtures.golden_by_key(golden[name]["records"])
+        n_rec += len(records)
+        for key, rec in records.items():
+            if rec == want.get(key):
+                n_equal += 1
+            else:
+                mismatches.append((name, rec, want.get(key)))
+        if list(records) != list(want):
+            mismatches.append((name, "record keys", list(records)))
+        if counters != golden[name]["counters"]:
+            mismatches.append((name, "counters", counters))
+    stats = results.stats
+    print(f"main path: DSEEngine.run over {len(space)} points, {n_rec} "
+          f"records, {n_equal} equal, {n_rec - n_equal} mismatched; "
+          f"{wall:.2f} s wall; engine " + json.dumps(stats), flush=True)
+    print("stage seconds (spans' self time, stage_attribution; coverage "
+          f"{att['coverage']:.4f}): " + json.dumps(
+              {k: round(v, 3) for k, v in stage.items()}), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
-    detail.update(stage_seconds=stage, workload_seconds=per_workload,
-                  main_path_wall_s=wall, launches=launches,
+    detail.update(stage_seconds=stage, stage_attribution=att,
+                  workload_seconds=per_workload, main_path_wall_s=wall,
+                  main_path_stats=stats, launches=launches,
                   mismatches=[repr(m) for m in mismatches[:50]],
                   kernels=kernels)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -1856,12 +2066,16 @@ def main():
     for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
+    if launches["replay"] != stats["replay_batches"] \
+            or launches["place"] != stats["offload_builds"]:
+        fail(f"main path launches {launches} differ from the engine's "
+             f"builds {stats}")
 
-    # the same sweep again under torch.profiler: summed device time per
-    # kernel, and the device's busy share of the traced sweep's wall time
+    # the same sweep again under torch.profiler, on a fresh engine: summed
+    # device time per kernel, and the device's busy share of the traced
+    # sweep's wall time (the trace VM included)
     def sweep():
-        for name in fixtures.WORKLOADS:
-            fixtures.price_design_points(fresh(traces[name]), device=dev)
+        DSEEngine(max_workers=1, device=dev).run(space)
 
     events, traced_wall = device_ms_by_kernel(sweep)
     busy = sum(ms for ms, _ in events.values())
@@ -1932,7 +2146,18 @@ def main():
     for name in MAIN_PATH_KERNELS:
         kernels[name]["service_launches"] = served_launches[name]
 
-    # --------------------------------------------------------- 10. result
+    # --------------------------------------------------- 10. entry points
+    entry, entry_launches = entry_points_phase(dev, traces, smi)
+    detail["entry_points"] = entry
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if entry["failures"]:
+        for f in entry["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(entry['failures'])} failures in the entry-points phase")
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["entry_point_launches"] = entry_launches[name]
+
+    # --------------------------------------------------------- 11. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]
@@ -1955,7 +2180,7 @@ def main():
                           "device_astar_ns_per_access", "l1_misses",
                           "main_path_device_ms", "dse_launches",
                           "sampled_launches", "sampled_device_ms",
-                          "service_launches",
+                          "service_launches", "entry_point_launches",
                           "sampled_stream",
                           "f32_bound_ms", "f32_bound_share",
                           "chain_bound_ms", "share_of_tolerance",

@@ -9,14 +9,17 @@ Twin of ``benchmarks/run.py``::
     python -m repro_torch.bench --list               # enumerate artifacts
     python -m repro_torch.bench sampling [...]       # the sampling bench
     python -m repro_torch.bench service [...]        # the service bench
+    python -m repro_torch.bench timing [...]         # per-stage throughput
 
 Each artifact's CSV and JSON are byte for byte what ``python -m
 benchmarks.run`` writes for the same name.  ``sampling`` is not an
 artifact: it runs :mod:`repro_torch.bench.sampling` (the twin of
 ``benchmarks/bench_sampling.py``) with the arguments that follow it, and
 ``service`` likewise runs :mod:`repro_torch.bench.service` (the twin of
-``benchmarks/bench_service.py``).  ``analysis_timing``, ``tpu_macr``,
-``fig_tpu_dse`` and ``roofline`` wait for their ROADMAP Queue 1 items.
+``benchmarks/bench_service.py``), and ``timing``
+:mod:`repro_torch.bench.timing` (the twin of
+``benchmarks/analysis_timing.py``).  ``tpu_macr``, ``fig_tpu_dse`` and
+``roofline`` wait for their ROADMAP Queue 1 items.
 """
 from __future__ import annotations
 
@@ -70,6 +73,9 @@ def main(argv=None) -> int:
     if argv[:1] == ["service"]:
         from repro_torch.bench import service
         return service.main(argv[1:])
+    if argv[:1] == ["timing"]:
+        from repro_torch.bench import timing
+        return timing.main(argv[1:])
     args = ap.parse_args(argv)
     if args.list:
         for name, mod in ALL.items():

@@ -225,6 +225,17 @@ class CacheHierarchy:
             lv.misses = int(counters.get(f"{lv.cfg.name}_misses", 0))
             lv.writebacks = int(counters.get(f"{lv.cfg.name}_writebacks", 0))
 
+    def stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-level hits/misses/writebacks with the level's geometry, and
+        the DRAM traffic (the reference's report of one replay)."""
+        out = {}
+        for lv in self.levels:
+            out[lv.cfg.name] = {"hits": lv.hits, "misses": lv.misses,
+                                "writebacks": lv.writebacks,
+                                "size": lv.cfg.size, "assoc": lv.cfg.assoc}
+        out["MEM"] = {"reads": self.mem_reads, "writes": self.mem_writes}
+        return out
+
     def _writeback(self, line: int, below: str) -> None:
         """Victim from `below` written into the next level (or DRAM)."""
         seen = False

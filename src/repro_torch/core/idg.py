@@ -1,8 +1,10 @@
 """Instruction Dependency Graph tables -- the paper's Algorithm 2 (Fig. 6).
 
-Twin of ``repro/core/idg.py``, columnar half.  Producers of register
-operands are found with the two tables the paper's probes build at commit
-time:
+Twin of ``repro/core/idg.py``.  An IDG is a forest of *flipped trees*:
+the root of each tree is a CiM-supported OP instruction, edges point from
+an instruction to the instructions that produced its source operands, and
+leaves are loads or immediates.  Producers of register operands are found
+with the two tables the paper's probes build at commit time:
 
   RUT (register usage table)   reg -> [seq of instructions that wrote reg]
   IHT (index hash table)       seq -> [(src reg, RUT position at commit)]
@@ -14,26 +16,72 @@ operand read at ``s`` iff it is the latest write to that register before
 ``s``.  The reference runs one ``searchsorted`` per register; here one
 ``searchsorted`` over a (register, seq) key covers all registers at once.
 
-:class:`FlowIndex` keeps the reference's CSR layout, as tensors.  The
-hand-built ``List[Inst]`` path (``IDGNode`` trees, ``_build_flow_rows``)
-belongs to a later slice.
+:class:`FlowIndex` keeps the reference's CSR layout, as tensors.
+
+:class:`IDGBuilder` resolves producers and builds :class:`IDGNode` trees
+over both trace kinds.  On a columnar trace a tree walk reads the host
+mirrors that exist once per trace (``ColumnarTrace._col_lists`` and the
+``_StructTables`` lists), never a device tensor per node.  A hand-built
+``List[Inst]`` trace (tests, exploration) is a host object, with explicit
+RUT/IHT dict tables: its builder and :func:`_build_flow_rows` run on the
+host, as the reference's do, and its flow tables are CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, FrozenSet, List, Tuple
+import dataclasses
+from typing import Dict, FrozenSet, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.columnar import ColumnarTrace, resolve_device
-from repro_torch.core.isa import OP_CODE, OP_STORE, SRC_REG
+from repro_torch.core.columnar import (COLUMNS, ColumnarTrace, decode_imm,
+                                       resolve_device)
+from repro_torch.core.isa import OP_CODE, OP_STORE, SRC_IMM, SRC_REG, Inst
 
 # leaf kinds
 LEAF_LOAD = "load"            # Algorithm 2's LEAF_TRUE
+LEAF_IMM = "imm"              # Fig. 4(b) variant
 LEAF_MEMVAL = "memval"        # value produced by a non-CiM op, resident in
                               # memory via its store (Fig. 4(c) boundary)
 
 _I64 = torch.int64
+# positions of the operand columns in ``ColumnarTrace._col_lists()``
+_SRC_TAG, _SRC_VAL, _SRC_KIND = (COLUMNS.index(c) for c in
+                                 ("src_tag", "src_val", "src_kind"))
+
+
+@dataclasses.dataclass
+class IDGNode:
+    """One node of an IDG tree.  ``children`` holds (kind, payload) where
+    payload is an Inst for load leaves / op nodes, or the immediate value."""
+    inst: Inst
+    children: List[Tuple[str, object]] = dataclasses.field(default_factory=list)
+
+    @property
+    def left(self):          # the paper's binary view (Algorithm 2)
+        return self.children[0] if self.children else None
+
+    @property
+    def right(self):
+        return self.children[1] if len(self.children) > 1 else None
+
+    def iter_nodes(self) -> Iterator["IDGNode"]:
+        yield self
+        for kind, payload in self.children:
+            if kind == "node":
+                yield from payload.iter_nodes()
+
+    def load_leaves(self) -> List[Inst]:
+        out = []
+        for kind, payload in self.children:
+            if kind == LEAF_LOAD:
+                out.append(payload)
+            elif kind == "node":
+                out.extend(payload.load_leaves())
+        return out
+
+    def size_ops(self) -> int:
+        return sum(1 for _ in self.iter_nodes())
 
 
 def _offsets(counts: torch.Tensor) -> torch.Tensor:
@@ -149,29 +197,159 @@ def build_rut_iht(ct: ColumnarTrace
 
 
 # ======================================================================
-# Builder: the columnar half (CiM roots)
+# Builder: resolves producers and builds trees (both trace layouts)
 # ======================================================================
 class IDGBuilder:
-    """Producer resolution over a columnar trace.
+    """Resolves producers over a trace and builds IDG trees.
 
-    The selection path needs only the CiM roots here (trees are walked over
-    raw sequence indices in :mod:`repro_torch.core.offload`); ``Inst``-tree
-    construction for row traces belongs to a later slice."""
+    Columnar traces resolve producers through the vectorized producer
+    index, read through its host mirrors (lazy ``Inst`` row views from
+    ``ColumnarTrace.row``); hand-built ``List[Inst]`` traces use the
+    classic (RUT, IHT) dict tables, on the host."""
 
-    def __init__(self, trace: ColumnarTrace):
-        if not isinstance(trace, ColumnarTrace):
-            raise NotImplementedError(
-                "IDGBuilder over List[Inst] traces is not ported yet "
-                "(ROADMAP Queue 1: single-pass Algorithm 1 and row traces)")
+    def __init__(self, trace, rut: Optional[Dict[int, List[int]]] = None,
+                 iht: Optional[Dict[int, List[Tuple[int, int]]]] = None):
         self.trace = trace
+        self._fast = isinstance(trace, ColumnarTrace)
+        if not self._fast and (rut is None or iht is None):
+            raise ValueError("list-of-Inst traces need explicit RUT/IHT "
+                             "tables (trace_program builds them)")
+        self.rut = rut
+        self.iht = iht
+
+    # ------------------------------------------------------------ lookups
+    def producer_of(self, seq: int, src_slot: int) -> Optional[Inst]:
+        """Defining instruction of the ``src_slot``-th *register* source."""
+        if self._fast:
+            t = _tables(self.trace)
+            src_tag = self.trace._col_lists()[_SRC_TAG]
+            slot = 0
+            for j in range(t.src_off_l[seq], t.src_off_l[seq + 1]):
+                if src_tag[j] != SRC_REG:
+                    continue
+                if slot == src_slot:
+                    prod = t.full_prod_l[j]
+                    return self.trace.row(prod) if prod >= 0 else None
+                slot += 1
+            return None
+        entries = self.iht.get(seq, ())
+        if src_slot >= len(entries):
+            return None
+        reg, pos = entries[src_slot]
+        writes = self.rut.get(reg, ())
+        if 0 <= pos < len(writes):
+            return self.trace[writes[pos]]
+        return None
+
+    def producers(self, inst: Inst) -> List[Tuple[str, object]]:
+        """All source operands of ``inst`` resolved to (kind, payload).
+
+        kind: "imm" for immediates, "inst" for register operands (payload =
+        producing Inst), "unknown" when the register has no recorded writer
+        (pre-existing machine state).
+        """
+        if self._fast:
+            return self._producers_seq(inst.seq)
+        out: List[Tuple[str, object]] = []
+        reg_slot = 0
+        for tag, val in inst.srcs:
+            if tag == SRC_IMM:
+                out.append(("imm", val))
+            else:
+                p = self.producer_of(inst.seq, reg_slot)
+                reg_slot += 1
+                out.append(("inst", p) if p is not None else ("unknown", val))
+        return out
+
+    def _producers_seq(self, seq: int) -> List[Tuple[str, object]]:
+        t = _tables(self.trace)
+        row = self.trace.row
+        cols = self.trace._col_lists()
+        tag, val, kind, prod = (cols[_SRC_TAG], cols[_SRC_VAL],
+                                cols[_SRC_KIND], t.full_prod_l)
+        out: List[Tuple[str, object]] = []
+        for j in range(t.src_off_l[seq], t.src_off_l[seq + 1]):
+            if tag[j] == SRC_IMM:
+                out.append(("imm", decode_imm(val[j], kind[j])))
+            else:
+                p = prod[j]
+                out.append(("inst", row(p)) if p >= 0
+                           else ("unknown", int(val[j])))
+        return out
+
+    # ------------------------------------------------------- tree building
+    def create_tree(self, root: Inst, cim_set: FrozenSet[str],
+                    claimed: Optional[set] = None,
+                    max_ops: int = 64) -> Optional[IDGNode]:
+        """Algorithm 2's create_tree: recursive producer expansion.
+
+        Recurses through CiM-supported producers (composite patterns),
+        terminates at load leaves / immediates, and cuts at non-CiM
+        producers (their value is memory-resident via its store ->
+        LEAF_MEMVAL).  ``claimed`` marks instructions already owned by an
+        accepted candidate -- the partition step's bookkeeping.
+        """
+        if root.op not in cim_set:
+            return None
+        budget = [max_ops]
+
+        def build(inst: Inst) -> Optional[IDGNode]:
+            if budget[0] <= 0:
+                return None
+            budget[0] -= 1
+            node = IDGNode(inst)
+            for kind, payload in self.producers(inst):
+                if kind == "imm":
+                    node.children.append((LEAF_IMM, payload))
+                elif kind == "unknown":
+                    node.children.append((LEAF_IMM, payload))
+                else:
+                    p: Inst = payload
+                    if p.is_load:
+                        node.children.append((LEAF_LOAD, p))
+                    elif p.op == "mov" and all(t == SRC_IMM for t, _ in p.srcs):
+                        # accumulator init (mov #imm): an immediate leaf
+                        node.children.append((LEAF_IMM, p.srcs[0][1]))
+                    elif (p.op in cim_set
+                          and (claimed is None or p.seq not in claimed)):
+                        sub = build(p)
+                        if sub is None:
+                            node.children.append((LEAF_MEMVAL, p))
+                        else:
+                            node.children.append(("node", sub))
+                    else:
+                        node.children.append((LEAF_MEMVAL, p))
+            return node
+
+        return build(root)
 
     def cim_root_seqs(self, cim_set: FrozenSet[str]) -> torch.Tensor:
-        """Ascending seqs of every CiM-supported instruction."""
+        """Ascending seqs of every CiM-supported instruction (columnar
+        traces), on the trace's device."""
         codes = torch.tensor(sorted(OP_CODE[o] for o in cim_set
                                     if o in OP_CODE),
                              dtype=self.trace.op.dtype,
                              device=self.trace.device)
         return torch.nonzero(torch.isin(self.trace.op, codes)).flatten()
+
+    def build_forest(self, cim_set: FrozenSet[str],
+                     max_ops: int = 64) -> List[IDGNode]:
+        """Algorithm 2's outer loop: one tree per CiM-supported instruction.
+
+        (Offload selection uses a claimed-set variant instead so composite
+        candidates are extracted exactly once -- see core/offload.py.)
+        """
+        if self._fast:
+            roots = [self.trace.row(seq) for seq in
+                     self.cim_root_seqs(cim_set).tolist()]
+        else:
+            roots = [inst for inst in self.trace if inst.op in cim_set]
+        forest = []
+        for inst in roots:
+            tree = self.create_tree(inst, cim_set, max_ops=max_ops)
+            if tree is not None:
+                forest.append(tree)
+        return forest
 
 
 # ======================================================================
@@ -186,7 +364,8 @@ class FlowIndex:
     """Derived O(N) flow maps over a trace (built once, reused everywhere).
 
     Columnar storage -- CSR/paired-array tensors on the trace's device --
-    with lazy list mirrors for the host-side selection walk:
+    with lazy list mirrors for the host-side selection walk, and the
+    reference's dict views as lazy properties:
 
       ``consumers_of(seq)``    register consumers of an op's value
       ``stores_of(seq)``       stores that spilled an op's value
@@ -194,10 +373,10 @@ class FlowIndex:
     """
 
     __slots__ = ("n", "rc_off", "rc_val", "so_off", "so_val", "ls_seq",
-                 "ls_src", "_py")
+                 "ls_src", "_py", "_dicts")
 
     def __init__(self, n: int, rc_off, rc_val, so_off, so_val,
-                 ls_seq, ls_src):
+                 ls_seq, ls_src, dicts: Optional[dict] = None):
         self.n = n
         self.rc_off = rc_off
         self.rc_val = rc_val
@@ -206,6 +385,7 @@ class FlowIndex:
         self.ls_seq = ls_seq
         self.ls_src = ls_src
         self._py = None
+        self._dicts = dicts
 
     # ------------------------------------------------------ fast accessors
     def _py_tables(self):
@@ -230,6 +410,74 @@ class FlowIndex:
 
     def load_source_of(self, seq: int) -> int:
         return self._py_tables()[4][seq]
+
+    # ------------------------------------------------------- dict views
+    def _build_dicts(self) -> dict:
+        if self._dicts is None:
+            rc_off, rc_val, so_off, so_val, _ = self._py_tables()
+
+            def csr_dict(offs, vals):
+                return {seq: vals[offs[seq]:offs[seq + 1]]
+                        for seq in range(self.n)
+                        if offs[seq + 1] > offs[seq]}
+
+            load_source = {}
+            value_loads: Dict[int, List[int]] = {}
+            for s, src in zip(self.ls_seq.tolist(), self.ls_src.tolist()):
+                load_source[s] = None if src < 0 else src
+                if src >= 0:
+                    value_loads.setdefault(src, []).append(s)
+            self._dicts = {
+                "reg_consumers": csr_dict(rc_off, rc_val),
+                "store_of": csr_dict(so_off, so_val),
+                "load_source": load_source,
+                "value_loads": value_loads,
+            }
+        return self._dicts
+
+    @property
+    def reg_consumers(self) -> Dict[int, List[int]]:
+        return self._build_dicts()["reg_consumers"]
+
+    @property
+    def store_of(self) -> Dict[int, List[int]]:
+        return self._build_dicts()["store_of"]
+
+    @property
+    def load_source(self) -> Dict[int, Optional[int]]:
+        return self._build_dicts()["load_source"]
+
+    @property
+    def value_loads(self) -> Dict[int, List[int]]:
+        return self._build_dicts()["value_loads"]
+
+    # -------------------------------------------------------- construction
+    @classmethod
+    def from_dicts(cls, reg_consumers, store_of, load_source, value_loads,
+                   n: int) -> "FlowIndex":
+        """Wrap dict tables built by the row-path construction (CPU
+        tensors: a row trace is a host object)."""
+        def dict_csr(d):
+            counts = [0] * n
+            for k, v in d.items():
+                counts[k] = len(v)
+            off = torch.zeros(n + 1, dtype=_I64)
+            torch.cumsum(torch.tensor(counts, dtype=_I64), 0, out=off[1:])
+            vals = [x for k in sorted(d) for x in d[k]]
+            return off, torch.tensor(vals, dtype=_I64)
+
+        rc_off, rc_val = dict_csr(reg_consumers)
+        so_off, so_val = dict_csr(store_of)
+        ls_seq = sorted(load_source)
+        ls_src = [-1 if load_source[s] is None else load_source[s]
+                  for s in ls_seq]
+        return cls(n, rc_off, rc_val, so_off, so_val,
+                   torch.tensor(ls_seq, dtype=_I64),
+                   torch.tensor(ls_src, dtype=_I64),
+                   dicts={"reg_consumers": reg_consumers,
+                          "store_of": store_of,
+                          "load_source": load_source,
+                          "value_loads": value_loads})
 
     def to_arrays(self) -> Dict[str, np.ndarray]:
         """Array dict in the reference's layer-1 encoding."""
@@ -268,6 +516,7 @@ class FlowIndex:
         for name, arr in zip(_FLOW_TABLES, state[1:]):
             setattr(self, name, torch.from_numpy(arr))
         self._py = None
+        self._dicts = None
 
 
 def _build_flow_columnar(ct: ColumnarTrace) -> FlowIndex:
@@ -331,14 +580,44 @@ def _build_flow_columnar(ct: ColumnarTrace) -> FlowIndex:
     return FlowIndex(n, rc_off, rc_val, so_off, so_val, load_seqs, lsrc[o2])
 
 
-def build_flow_index(trace: ColumnarTrace) -> FlowIndex:
-    """Flow tables for a columnar trace, cached on the structural trace so
-    every geometry variant shares one build."""
-    if not isinstance(trace, ColumnarTrace):
-        raise NotImplementedError(
-            "flow index over List[Inst] traces is not ported yet "
-            "(ROADMAP Queue 1: single-pass Algorithm 1 and row traces)")
-    flow = trace._struct.get("flow")
-    if flow is None:
-        flow = trace._struct["flow"] = _build_flow_columnar(trace)
-    return flow
+def _build_flow_rows(trace: List[Inst], rut, iht) -> FlowIndex:
+    """The object-at-a-time construction (hand-built traces, on the
+    host)."""
+    b = IDGBuilder(trace, rut, iht)
+    reg_consumers: Dict[int, List[int]] = {}
+    store_of: Dict[int, List[int]] = {}
+    load_source: Dict[int, Optional[int]] = {}
+    value_loads: Dict[int, List[int]] = {}
+    last_writer_of_addr: Dict[int, int] = {}      # addr -> producing op seq
+
+    for inst in trace:
+        for kind, payload in b.producers(inst):
+            if kind == "inst":
+                p: Inst = payload
+                reg_consumers.setdefault(p.seq, []).append(inst.seq)
+                if inst.is_store:
+                    store_of.setdefault(p.seq, []).append(inst.seq)
+        if inst.is_store:
+            prods = [p.seq for k, p in b.producers(inst) if k == "inst"]
+            if prods:
+                last_writer_of_addr[inst.addr] = prods[0]
+        elif inst.is_load:
+            src = last_writer_of_addr.get(inst.addr)
+            load_source[inst.seq] = src
+            if src is not None:
+                value_loads.setdefault(src, []).append(inst.seq)
+    return FlowIndex.from_dicts(reg_consumers, store_of, load_source,
+                                value_loads, len(trace))
+
+
+def build_flow_index(trace, rut=None, iht=None) -> FlowIndex:
+    """Flow tables for a trace -- vectorized on the trace's device for
+    columnar traces (cached on the structural trace, so every geometry
+    variant shares one build), object-at-a-time on the host for hand-built
+    ``List[Inst]`` traces."""
+    if isinstance(trace, ColumnarTrace):
+        flow = trace._struct.get("flow")
+        if flow is None:
+            flow = trace._struct["flow"] = _build_flow_columnar(trace)
+        return flow
+    return _build_flow_rows(trace, rut, iht)

@@ -1,7 +1,17 @@
-"""Offloading-candidate selection -- the paper's Algorithm 1, columnar branch.
+"""Offloading-candidate selection -- the paper's Algorithm 1.
 
-Twin of ``repro/core/offload.py``.  Over a columnar trace the algorithm
-splits into two phases with different dependence keys:
+Twin of ``repro/core/offload.py``.  Walks the CIQ in reverse order
+(outermost consumers first, so composite patterns are extracted
+maximally), builds the IDG tree under each CiM-supported root (Algorithm 2
+via :mod:`repro_torch.core.idg`), then applies the paper's §IV-A/§IV-B
+constraints: CiM-supported op nodes, load / immediate / memory-resident
+leaves, at least one operand from memory, and operands that co-reside at
+one CiM-capable level (shallower ones written back as ``moves``, deeper
+ones lifted).
+
+With cross-level writeback enabled and no same-bank constraint (every
+sweep configuration), a columnar trace splits the algorithm into two
+phases with different dependence keys:
 
   * **partition** (structural) -- reverse-order IDG tree extraction and the
     removal sets.  With cross-level writeback enabled and no same-bank
@@ -15,9 +25,15 @@ splits into two phases with different dependence keys:
     (one launch of the placement kernel); on a CPU trace through the
     kernel's plain version.
 
-The single-pass branch (``require_same_bank=True`` or
-``allow_cross_level=False``) and hand-built ``List[Inst]`` traces belong to
-a later slice and raise ``NotImplementedError``.
+Configs with the same-bank or no-cross-level constraint, where acceptance
+*is* placement-dependent, run the single-pass algorithm: per CiM root,
+one tree walk and its acceptance against the leaves' levels and banks.
+On a columnar trace it stays on that trace, reading its levels and banks
+through the host mirror ``ColumnarTrace._col_lists`` (one copy per trace
+variant) and placing each tree on the host, as the reference does; the
+placement kernel does not run there.  Hand-built ``List[Inst]`` traces,
+with explicit RUT/IHT tables, are host objects in both packages: their
+single pass runs on the host whatever ``device`` says.
 """
 from __future__ import annotations
 
@@ -31,10 +47,11 @@ import torch
 from repro_torch.core.accel.place import place_candidates
 from repro_torch.core.columnar import ColumnarTrace, resolve_device
 from repro_torch.core.idg import (LEAF_LOAD, LEAF_MEMVAL, FlowIndex,
-                                  IDGBuilder, _tables, build_flow_index)
+                                  IDGBuilder, IDGNode, _tables,
+                                  build_flow_index)
 from repro_torch.core.isa import (CIM_OP_CLASS, CIM_SET_STT, LEVEL_L1,
-                                  LEVEL_MEM, OP_CODE, OP_LOAD, OP_MOV, OPS,
-                                  OP_STORE)
+                                  OP_CODE, OP_LOAD, OP_MOV, OPS, OP_STORE,
+                                  Inst)
 
 _LEVEL_DEPTH = {"L1": 0, "L2": 1, "MEM": 2}
 _DEPTH_LEVEL = {v: k for k, v in _LEVEL_DEPTH.items()}
@@ -43,10 +60,6 @@ _DEPTH_LEVEL = {v: k for k, v in _LEVEL_DEPTH.items()}
 # selection, reshaping).  The port implements exactly this version; the
 # trace fixtures record it.
 ANALYSIS_VERSION = 2
-
-_SINGLE_PASS = ("the single-pass Algorithm 1 branch (require_same_bank=True "
-                "or allow_cross_level=False) and List[Inst] traces are not "
-                "ported yet (ROADMAP Queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,29 +123,210 @@ class OffloadResult:
         self.__dict__.update(state)
         self.claimed = set(state["claimed"].tolist())
 
-    def macr(self, trace: ColumnarTrace) -> float:
+    def macr(self, trace) -> float:
         """Memory-access conversion ratio (the paper's §VI-C metric)."""
-        total = trace.mem_accesses()
+        if isinstance(trace, ColumnarTrace):
+            total = trace.mem_accesses()
+        else:
+            total = sum(1 for i in trace if i.is_mem)
         if total == 0:
             return 0.0
         converted = sum(c.converted_accesses for c in self.candidates)
         return converted / total
 
-    def macr_breakdown(self, trace: ColumnarTrace) -> Dict[str, float]:
+    def macr_breakdown(self, trace) -> Dict[str, float]:
         """Fig. 13: converted accesses split into L1 / other levels."""
-        total = max(1, trace.mem_accesses())
-        seqs = list(itertools.chain.from_iterable(
-            c.load_seqs + c.store_seqs for c in self.candidates))
-        if seqs:
-            lv = trace.level[torch.tensor(seqs, dtype=torch.int64,
-                                          device=trace.device)]
-            l1 = int((lv == LEVEL_L1).sum())
-            other = len(seqs) - l1
+        if isinstance(trace, ColumnarTrace):
+            total = max(1, trace.mem_accesses())
+            seqs = list(itertools.chain.from_iterable(
+                c.load_seqs + c.store_seqs for c in self.candidates))
+            if seqs:
+                lv = trace.level[torch.tensor(seqs, dtype=torch.int64,
+                                              device=trace.device)]
+                l1 = int((lv == LEVEL_L1).sum())
+                other = len(seqs) - l1
+            else:
+                l1 = other = 0
         else:
+            total = max(1, sum(1 for i in trace if i.is_mem))
             l1 = other = 0
+            for c in self.candidates:
+                for s in c.load_seqs + c.store_seqs:
+                    if trace[s].level == "L1":
+                        l1 += 1
+                    else:
+                        other += 1
         return {"macr": (l1 + other) / total, "l1": l1 / total,
                 "other": other / total,
                 "total_accesses": total, "converted": l1 + other}
+
+
+# ======================================================================
+# Single-pass acceptance: row traces + placement-constrained configs
+# ======================================================================
+def _leaf_levels(node: IDGNode, flow: FlowIndex, trace
+                 ) -> Optional[List[Tuple[str, Optional[int], str, int]]]:
+    """(kind, seq, level, bank) per memory-resident operand of a subtree."""
+    out = []
+    for kind, payload in node.children:
+        if kind == LEAF_LOAD:
+            inst: Inst = payload
+            out.append((LEAF_LOAD, inst.seq, inst.level, inst.bank))
+        elif kind == LEAF_MEMVAL:
+            inst: Inst = payload
+            stores = flow.stores_of(inst.seq)
+            if not stores:
+                return None                      # value never reached memory
+            st = trace[stores[-1]]
+            out.append((LEAF_MEMVAL, inst.seq, st.level, st.bank))
+        elif kind == "node":
+            sub = _leaf_levels(payload, flow, trace)
+            if sub is None:
+                return None
+            out.extend(sub)
+    return out
+
+
+def _try_accept(node: IDGNode, flow: FlowIndex, trace,
+                cfg: OffloadConfig, claimed: Set[int]) -> Optional[Candidate]:
+    ops = list(node.iter_nodes())
+    if any(n.inst.seq in claimed for n in ops):
+        return None
+    leaves = _leaf_levels(node, flow, trace)
+    if leaves is None:
+        return None
+    mem_leaves = [l for l in leaves if l[0] in (LEAF_LOAD, LEAF_MEMVAL)]
+    if len(mem_leaves) < cfg.min_mem_operands:
+        return None
+    if sum(1 for l in leaves if l[0] == LEAF_LOAD) < cfg.min_load_leaves:
+        return None
+
+    # ---- locality: pick the offload level (deepest leaf level among
+    # CiM-capable levels); deeper-than-capable leaves are infeasible.
+    depth_cap = max(_LEVEL_DEPTH[l] for l in cfg.cim_levels)
+    max_depth = 0
+    for _, _, level, _ in mem_leaves:
+        d = _LEVEL_DEPTH.get(level, 2)
+        if d > depth_cap:
+            # data currently in DRAM (or below any CiM cache): the fill
+            # happens in both scenarios -- offload at the deepest CiM level.
+            d = depth_cap
+        max_depth = max(max_depth, d)
+    # lift to the shallowest *enabled* level >= max_depth
+    enabled_depths = sorted(_LEVEL_DEPTH[l] for l in cfg.cim_levels)
+    target_depth = next((d for d in enabled_depths if d >= max_depth),
+                        enabled_depths[-1])
+    level = _DEPTH_LEVEL[target_depth]
+    moves = sum(1 for _, _, lv, _ in mem_leaves
+                if _LEVEL_DEPTH.get(lv, 2) < target_depth)
+    if moves and not cfg.allow_cross_level:
+        return None
+
+    if cfg.require_same_bank:
+        banks = {b for _, _, lv, b in mem_leaves if lv == level}
+        if len(banks) > 1:
+            return None
+
+    # ---- gather the removal set --------------------------------------
+    op_seqs = [n.inst.seq for n in ops]
+    op_set = set(op_seqs)
+    # loads/stores already claimed by an earlier candidate are shared
+    # operands (the value is already array-resident) -- never count twice
+    load_seqs = sorted({s for k, s, _, _ in leaves if k == LEAF_LOAD}
+                       - claimed)
+    internal = 0
+    # dependent-subtree merge: converted loads whose value was produced by
+    # an op we also offload become in-bank moves (Fig. 5c)
+    for s in load_seqs:
+        src = flow.load_source_of(s)
+        if src >= 0 and src in op_set:
+            internal += 1
+    store_set: Set[int] = set()
+    added_loads = 0
+    root_seq = node.inst.seq
+    for p in op_seqs:
+        store_set.update(s for s in flow.stores_of(p)
+                         if s not in claimed)
+        if p == root_seq:
+            # the CiM macro-instruction is read-class: the root's result
+            # returns to the host destination register like a load result
+            continue
+        for consumer in flow.consumers_of(p):  # outside reg readers
+            # consumers claimed by *other* candidates read the value in the
+            # array; only surviving host ops re-load it
+            if (consumer not in op_set and consumer not in claimed
+                    and not trace[consumer].is_store):
+                added_loads += 1
+    store_seqs = sorted(store_set)
+    bank = trace[load_seqs[0]].bank if load_seqs else None
+    # DRAM fills kept in both scenarios: one per unique line this candidate
+    # touches whose access was served by main memory.
+    fill_lines = {trace[s].addr // 64 for s in load_seqs
+                  if trace[s].level == "MEM"}
+    fill_lines |= {trace[s].addr // 64 for s in store_seqs
+                   if trace[s].level == "MEM"}
+    dram_fills = len(fill_lines)
+    return Candidate(
+        root_seq=node.inst.seq,
+        op_seqs=op_seqs,
+        op_classes=[CIM_OP_CLASS.get(trace[s].op, "CiM-ADD") for s in op_seqs],
+        load_seqs=load_seqs,
+        store_seqs=store_seqs,
+        level=level,
+        bank=bank,
+        moves=moves,
+        internal_edges=internal,
+        added_loads=added_loads,
+        memval_leaves=sum(1 for k, *_ in leaves if k == LEAF_MEMVAL),
+        dram_fills=dram_fills,
+    )
+
+
+def _accept_or_descend(tree: IDGNode, flow: FlowIndex, trace,
+                       cfg: OffloadConfig, claimed: Set[int],
+                       candidates: List[Candidate]) -> None:
+    """Accept the whole tree, or (Fig. 5) its immediate child subtrees."""
+    cand = _try_accept(tree, flow, trace, cfg, claimed)
+    if cand is None:
+        for kind, payload in tree.children:
+            if kind == "node":
+                sub = _try_accept(payload, flow, trace, cfg, claimed)
+                if sub is not None:
+                    candidates.append(sub)
+                    claimed.update(sub.op_seqs)
+                    claimed.update(sub.load_seqs)
+                    claimed.update(sub.store_seqs)
+        return
+    candidates.append(cand)
+    claimed.update(cand.op_seqs)
+    claimed.update(cand.load_seqs)
+    claimed.update(cand.store_seqs)
+
+
+def _single_pass(trace, builder: IDGBuilder, flow: FlowIndex,
+                 cfg: OffloadConfig) -> OffloadResult:
+    """Algorithm 1 in one pass, acceptance against the leaves' placement.
+
+    Reverse order over the CiM roots: outermost roots first, so composite
+    patterns are extracted maximally.  A columnar trace's roots come from
+    its op column; its rows, levels and banks from its host mirror."""
+    if isinstance(trace, ColumnarTrace):
+        roots = builder.cim_root_seqs(cfg.cim_set).flip(0).tolist()
+    else:
+        roots = [seq for seq in range(len(trace) - 1, -1, -1)
+                 if trace[seq].op in cfg.cim_set]
+    claimed: Set[int] = set()
+    candidates: List[Candidate] = []
+    for seq in roots:
+        if seq in claimed:
+            continue
+        tree = builder.create_tree(trace[seq], cfg.cim_set, claimed=claimed,
+                                   max_ops=cfg.max_tree_ops)
+        if tree is None:
+            continue
+        _accept_or_descend(tree, flow, trace, cfg, claimed, candidates)
+    candidates.reverse()                     # report in program order
+    return OffloadResult(candidates, claimed, flow, cfg)
 
 
 # ======================================================================
@@ -395,26 +589,49 @@ def _place(part: SelectionPartition, ct: ColumnarTrace,
 # ======================================================================
 class TraceAnalysis:
     """Config-independent artifacts of one traced workload: the builder and
-    flow index, shared through the structural trace's memo so geometry
-    variants of one workload reuse them."""
+    flow index.  For columnar traces they are shared through the
+    structural trace's memo, so geometry variants of one workload reuse
+    them; a ``List[Inst]`` trace carries its RUT/IHT tables."""
 
-    def __init__(self, trace: ColumnarTrace,
+    def __init__(self, trace, rut=None, iht=None,
                  builder: Optional[IDGBuilder] = None,
                  flow: Optional[FlowIndex] = None):
         self.trace = trace
-        self.builder = builder or IDGBuilder(trace)
-        self.flow = flow if flow is not None else build_flow_index(trace)
+        self._rut = rut
+        self._iht = iht
+        self.builder = builder or IDGBuilder(trace, rut, iht)
+        self.flow = flow if flow is not None \
+            else build_flow_index(trace, rut, iht)
+
+    @property
+    def rut(self):
+        if self._rut is None and isinstance(self.trace, ColumnarTrace):
+            return self.trace.rut
+        return self._rut
+
+    @property
+    def iht(self):
+        if self._iht is None and isinstance(self.trace, ColumnarTrace):
+            return self.trace.iht
+        return self._iht
 
     def select(self, cfg: OffloadConfig = OffloadConfig()) -> OffloadResult:
-        """Run Algorithm 1 against these artifacts for one configuration."""
-        return select_candidates(self.trace, cfg, flow=self.flow,
-                                 builder=self.builder,
-                                 device=self.trace.device)
+        """Run Algorithm 1 against these artifacts for one configuration
+        (on the trace's own device)."""
+        device = (self.trace.device if isinstance(self.trace, ColumnarTrace)
+                  else "cpu")
+        return select_candidates(self.trace, self._rut, self._iht, cfg,
+                                 flow=self.flow, builder=self.builder,
+                                 device=device)
 
 
 def analyze_trace(tr) -> TraceAnalysis:
-    """Build the reusable IDG/flow artifacts for a ``TraceResult``."""
-    return TraceAnalysis(tr.trace)
+    """Build the reusable IDG/flow artifacts for a ``TraceResult`` (or any
+    object exposing ``trace`` -- plus ``rut``/``iht`` for row traces)."""
+    trace = tr.trace
+    if isinstance(trace, ColumnarTrace):
+        return TraceAnalysis(trace)
+    return TraceAnalysis(trace, tr.rut, tr.iht)
 
 
 def rehydrate_analysis(tr, flow: FlowIndex) -> TraceAnalysis:
@@ -423,29 +640,47 @@ def rehydrate_analysis(tr, flow: FlowIndex) -> TraceAnalysis:
     The only derived table worth storing is the :class:`FlowIndex`
     (:class:`IDGBuilder` is a stateless view over the trace), so the
     analysis store saves ``(TraceResult, FlowIndex)`` and this rebuilds the
-    analysis without re-walking the trace.  ``flow`` lives on the trace's
-    device."""
+    analysis without re-walking the trace.  For a columnar trace ``flow``
+    lives on the trace's device."""
     trace = tr.trace
-    trace._struct.setdefault("flow", flow)
-    return TraceAnalysis(trace, flow=flow)
+    if isinstance(trace, ColumnarTrace):
+        trace._struct.setdefault("flow", flow)
+        return TraceAnalysis(trace, flow=flow)
+    return TraceAnalysis(trace, tr.rut, tr.iht, flow=flow)
 
 
-def select_candidates(trace: ColumnarTrace,
+def select_candidates(trace, rut=None, iht=None,
                       cfg: OffloadConfig = OffloadConfig(),
                       flow: Optional[FlowIndex] = None,
                       builder: Optional[IDGBuilder] = None,
                       device="cuda") -> OffloadResult:
     """Algorithm 1: build tables -> build IDG trees -> partition/extract.
 
-    Runs on ``device`` (the trace moves there if it lives elsewhere)."""
-    if not isinstance(trace, ColumnarTrace):
-        raise NotImplementedError(_SINGLE_PASS)
-    if not cfg.allow_cross_level or cfg.require_same_bank:
-        raise NotImplementedError(_SINGLE_PASS)
-    moved = trace.to(resolve_device(device))
-    if moved is not trace:
-        trace, flow, builder = moved, None, None
-    builder = builder or IDGBuilder(trace)
-    flow = flow or build_flow_index(trace)
-    part = _partition(trace, builder, flow, cfg)
-    return OffloadResult(_place(part, trace, cfg), part.claimed, flow, cfg)
+    The reference's signature: ``select_candidates(rows, rut, iht, cfg)``
+    for a hand-built ``List[Inst]`` trace, ``select_candidates(ct,
+    cfg=cfg)`` for a columnar one.  A columnar trace runs on ``device``
+    (it moves there if it lives elsewhere; ``"cuda"`` without a card
+    raises).  A ``List[Inst]`` trace is a host object: its branch runs on
+    the host, as the reference's does, and ``device`` does not apply."""
+    for name, val in (("rut", rut), ("iht", iht)):
+        if isinstance(val, OffloadConfig):
+            raise TypeError(
+                f"select_candidates got an OffloadConfig as {name!r}: the "
+                "signature is (trace, rut=None, iht=None, cfg=...); pass "
+                "cfg=... by keyword for a columnar trace")
+    if not isinstance(cfg, OffloadConfig):
+        raise TypeError(f"cfg must be an OffloadConfig, not "
+                        f"{type(cfg).__name__}")
+    if isinstance(trace, ColumnarTrace):
+        moved = trace.to(resolve_device(device))
+        if moved is not trace:
+            trace, flow, builder = moved, None, None
+    builder = builder or IDGBuilder(trace, rut, iht)
+    flow = flow or build_flow_index(trace, rut, iht)
+    if (isinstance(trace, ColumnarTrace) and cfg.allow_cross_level
+            and not cfg.require_same_bank):
+        # structural partition (shared across geometries) + placement
+        part = _partition(trace, builder, flow, cfg)
+        return OffloadResult(_place(part, trace, cfg), part.claimed, flow,
+                             cfg)
+    return _single_pass(trace, builder, flow, cfg)

@@ -7,12 +7,14 @@ CiM-enabled system, and emits the paper's reported metrics: energy
 improvement, speedup, processor/cache contribution breakdown (Table VI) and
 MACR (Fig. 13).
 
-Twin of ``repro/core/profiler.py``, columnar path.  The counts run on the
-trace's device as int64 -- a ``bincount`` over functional units and the
-(level, is_write) buckets of the memory instructions.  Every float64 sum
-runs on the host as Python floats in the reference's statement order,
+Twin of ``repro/core/profiler.py``.  On a columnar trace the counts run
+on the trace's device as int64 -- a ``bincount`` over functional units and
+the (level, is_write) buckets of the memory instructions.  Every float64
+sum runs on the host as Python floats in the reference's statement order,
 including the iteration order of its dicts and its ``Counter``, so the
 priced reports are *exactly* equal to the reference's, not merely close.
+A hand-built ``List[Inst]`` trace is priced as the reference prices it:
+one host loop over the instructions, in its order of additions.
 """
 from __future__ import annotations
 
@@ -195,25 +197,49 @@ class Profiler:
         counts = torch.bincount(combo).tolist()
         return {(c // 2, c % 2): n for c, n in enumerate(counts) if n}
 
+    def _price_host_rows(self, eb: EnergyBreakdown, insts) -> float:
+        """Host-side pricing of ``List[Inst]`` rows, one instruction at a
+        time in the reference's order of additions."""
+        cycles = 0.0
+        for inst in insts:
+            eb.host_pipeline += self.host.pipeline_pj
+            eb.host_units += self.host.unit_pj.get(inst.unit, 15.0)
+            if inst.is_mem:
+                e = self._access_energy(inst.level, inst.is_store)
+                if inst.level == "MEM":
+                    eb.dram += DRAM_ACCESS_PJ
+                    e -= DRAM_ACCESS_PJ
+                key = inst.level if inst.level != "MEM" else "L2" \
+                    if "L2" in self.levels else "L1"
+                eb.cache[key] = eb.cache.get(key, 0.0) + e
+            cycles += self.host.inst_cycles(inst)
+        return cycles
+
     # ------------------------------------------------------------ baseline
-    def price_baseline(self, trace: ColumnarTrace
-                       ) -> Tuple[EnergyBreakdown, float]:
+    def price_baseline(self, trace) -> Tuple[EnergyBreakdown, float]:
         eb = EnergyBreakdown()
-        unit_counts = self._unit_counts(trace.unit)
-        mem_counts = self._mem_counts(trace.level, trace.op == OP_STORE)
-        cycles = self._price_host_columns(eb, unit_counts, mem_counts)
+        if isinstance(trace, ColumnarTrace):
+            unit_counts = self._unit_counts(trace.unit)
+            mem_counts = self._mem_counts(trace.level, trace.op == OP_STORE)
+            cycles = self._price_host_columns(eb, unit_counts, mem_counts)
+        else:
+            cycles = self._price_host_rows(eb, trace)
         eb.host_static = self.host.static_pj_per_cycle * cycles
         return eb, cycles
 
     # ------------------------------------------------------------ CiM run
-    def price_cim(self, trace: ColumnarTrace, reshaped: ReshapedTrace
+    def price_cim(self, trace, reshaped: ReshapedTrace
                   ) -> Tuple[EnergyBreakdown, float]:
         eb = EnergyBreakdown()
         hs = reshaped.host_seqs
-        unit_counts = self._unit_counts(trace.unit[hs])
-        mem_counts = self._mem_counts(trace.level[hs],
-                                      trace.op[hs] == OP_STORE)
-        cycles = self._price_host_columns(eb, unit_counts, mem_counts)
+        if isinstance(trace, ColumnarTrace):
+            unit_counts = self._unit_counts(trace.unit[hs])
+            mem_counts = self._mem_counts(trace.level[hs],
+                                          trace.op[hs] == OP_STORE)
+            cycles = self._price_host_columns(eb, unit_counts, mem_counts)
+        else:
+            cycles = self._price_host_rows(
+                eb, (trace[seq] for seq in hs.tolist()))
 
         l1_read_lat = self.tech.latency("read", "L1")
         # one CiM macro-instruction issued/committed by the host per
@@ -280,15 +306,22 @@ def profile_system(tr: TraceResult,
     ``offload`` / ``reshaped`` let callers reuse the config-independent
     analysis artifacts (see :func:`repro_torch.core.offload.analyze_trace`):
     passing them skips candidate selection and trace reshaping, leaving
-    only the cheap pricing phase.
+    only the cheap pricing phase.  A ``TraceResult`` whose ``trace`` is a
+    hand-built ``List[Inst]`` (with its ``rut``/``iht``) is priced on the
+    host, as the reference prices it; ``device`` applies to columnar
+    traces.
     """
-    trace = tr.trace.to(resolve_device(device))
+    trace = tr.trace
     cache_cfgs = tuple(lv.cfg for lv in tr.cache.levels)
+    if isinstance(trace, ColumnarTrace):
+        trace = trace.to(resolve_device(device))
     if offload is not None:
         result = offload
-    else:
+    elif isinstance(trace, ColumnarTrace):
         result = select_candidates(trace, cfg=offload_cfg,
                                    device=trace.device)
+    else:
+        result = select_candidates(trace, tr.rut, tr.iht, offload_cfg)
     reshaped = reshaped or reshape(trace, result)
     prof = Profiler(cache_cfgs, tech=tech, host=host)
     base_eb, base_cycles = prof.price_baseline(trace)

@@ -9,7 +9,9 @@ in-bank merges and ``added_loads`` fresh host loads.
 
 The surviving host instructions stay a tensor of CIQ indices on the
 trace's device -- the pricing stage gathers the unit and level columns
-with it without a round trip through Python.
+with it without a round trip through Python.  A hand-built ``List[Inst]``
+trace is a host object: its surviving indices are a CPU int64 tensor, so
+``host_seqs`` has one type whatever the trace.
 """
 from __future__ import annotations
 
@@ -56,13 +58,18 @@ class ReshapedTrace:
         self.host_seqs = torch.from_numpy(state["host_seqs"])
 
 
-def reshape(trace: ColumnarTrace, result: OffloadResult) -> ReshapedTrace:
+def reshape(trace, result: OffloadResult) -> ReshapedTrace:
     claimed = result.claimed
-    mask = torch.ones(len(trace), dtype=torch.bool, device=trace.device)
-    if claimed:
-        mask[torch.tensor(list(claimed), dtype=torch.int64,
-                          device=trace.device)] = False
-    host_seqs = torch.nonzero(mask).flatten()
+    if isinstance(trace, ColumnarTrace):
+        mask = torch.ones(len(trace), dtype=torch.bool, device=trace.device)
+        if claimed:
+            mask[torch.tensor(list(claimed), dtype=torch.int64,
+                              device=trace.device)] = False
+        host_seqs = torch.nonzero(mask).flatten()
+    else:
+        host_seqs = torch.tensor([i.seq for i in trace
+                                  if i.seq not in claimed],
+                                 dtype=torch.int64)
     groups: List[CimGroup] = []
     moves: Dict[str, int] = {}
     internal: Dict[str, int] = {}

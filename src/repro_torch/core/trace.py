@@ -1445,25 +1445,30 @@ class StructuralTrace:
 class TraceResult:
     """One traced (program, cache geometry) pair: the columnar CIQ with
     memory-response columns filled, the hierarchy (for its counters), and
-    the program outputs."""
+    the program outputs.  ``rut`` / ``iht`` are derived views of a
+    columnar trace; a hand-built ``List[Inst]`` trace passes its own."""
 
-    __slots__ = ("trace", "cache", "outputs", "structural")
+    __slots__ = ("trace", "cache", "outputs", "structural", "_rut", "_iht")
 
-    def __init__(self, trace: ColumnarTrace, cache: CacheHierarchy,
+    def __init__(self, trace, cache: CacheHierarchy,
                  outputs: List[torch.Tensor],
-                 structural: Optional[StructuralTrace] = None):
+                 structural: Optional[StructuralTrace] = None,
+                 rut: Optional[Dict[int, List[int]]] = None,
+                 iht: Optional[Dict[int, List[Tuple[int, int]]]] = None):
         self.trace = trace
         self.cache = cache
         self.outputs = outputs
         self.structural = structural
+        self._rut = rut
+        self._iht = iht
 
     @property
     def rut(self) -> Dict[int, List[int]]:
-        return self.trace.rut
+        return self.trace.rut if self._rut is None else self._rut
 
     @property
     def iht(self) -> Dict[int, List[Tuple[int, int]]]:
-        return self.trace.iht
+        return self.trace.iht if self._iht is None else self._iht
 
     @property
     def n_instructions(self) -> int:

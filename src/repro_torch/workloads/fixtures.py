@@ -22,6 +22,16 @@ Both are written by ``python tests/test_torch_fixtures.py --regenerate``.
 and the adaptive run's records, frontier and rounds on fig_adaptive's
 space.  ``python tests/test_torch_bench.py --regenerate`` writes them.
 
+``fixtures/reference_single_pass.json`` holds the reference's
+single-pass Algorithm 1 (the placement-dependent branch) on the 17
+workloads under :data:`SINGLE_PASS_CACHE`, for each of
+:data:`SINGLE_PASS_CONFIGS` and each technology: the candidates' digest
+(:func:`candidate_digest`), the claimed count and the
+:data:`RECORD_FIELDS` (:func:`single_pass_records`); and the lines that
+``examples/quickstart.py`` and ``examples/evaluate_workloads.py`` (SRAM
+and FeFET) print, less their timings (:func:`example_lines`).
+``python tests/test_torch_fixtures.py --regenerate`` writes it.
+
 ``fixtures/reference_sampled.json`` holds the reference's sampled
 pipeline (``repro.core.sampling``): for ``KM@256`` under the sampling
 benchmark's ``SYNTH_SPEC`` (:mod:`repro_torch.bench.sampling`) in both
@@ -35,25 +45,25 @@ from __future__ import annotations
 import hashlib
 import json
 import pathlib
-import time
-from typing import Dict, List, Optional, Tuple
+import re
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.cache import L1_32K, L1_64K, L2_256K, L2_2M
 from repro_torch.core.columnar import ColumnarTrace, resolve_device
-from repro_torch.core.offload import OffloadConfig, select_candidates
-from repro_torch.core.profiler import SystemReport, profile_system
-from repro_torch.core.reshape import reshape
-from repro_torch.core.trace import (StructuralTrace,
-                                    attach_cache_results_batch)
+from repro_torch.core.offload import OffloadConfig
+from repro_torch.core.profiler import SystemReport
+from repro_torch.core.trace import StructuralTrace
+from repro_torch.dse import CacheOption, SweepSpace
 
 FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "fixtures"
 REPORTS_PATH = FIXTURE_DIR / "reference_reports.json"
 ARTIFACTS_DIR = FIXTURE_DIR / "reference_artifacts"
 RECORDS_PATH = ARTIFACTS_DIR / "records.json"
 SAMPLED_PATH = FIXTURE_DIR / "reference_sampled.json"
+SINGLE_PASS_PATH = FIXTURE_DIR / "reference_single_pass.json"
 
 
 WORKLOADS = ("NB", "DT", "SVM", "LiR", "KM", "LCS", "M2D", "BFS", "DFS",
@@ -79,6 +89,15 @@ TECHS = ("sram", "fefet")                     # Fig. 16 technologies
 #: the per-point fields the golden reports hold, all compared with ==
 RECORD_FIELDS = ("energy_improvement", "speedup", "macr", "macr_l1",
                  "n_candidates", "n_offloaded")
+
+# the single-pass (placement-dependent) Algorithm 1 configurations, as
+# OffloadConfig keyword arguments of either package, and their geometry
+SINGLE_PASS_CACHE = "32K+256K"
+SINGLE_PASS_CONFIGS = {
+    "same_bank": {"require_same_bank": True},
+    "no_cross_level_L1": {"allow_cross_level": False,
+                          "cim_levels": ("L1",)},
+}
 
 
 def load_arrays(name: str) -> Dict[str, np.ndarray]:
@@ -114,6 +133,47 @@ def reference_records() -> dict:
 def reference_sampled() -> dict:
     """The committed reference sampled pipeline (see module doc)."""
     return json.loads(SAMPLED_PATH.read_text())
+
+
+def reference_single_pass() -> dict:
+    """The committed reference single-pass records and example lines
+    (see module doc)."""
+    return json.loads(SINGLE_PASS_PATH.read_text())
+
+
+def candidate_tuple(c) -> tuple:
+    """Every field of one ``Candidate`` of either package."""
+    return (c.root_seq, tuple(c.op_seqs), tuple(c.op_classes),
+            tuple(c.load_seqs), tuple(c.store_seqs), c.level, c.bank,
+            c.moves, c.internal_edges, c.added_loads, c.memval_leaves,
+            c.dram_fills)
+
+
+def candidate_digest(candidates) -> str:
+    """sha256 of the candidates' fields, in order, as JSON."""
+    return hashlib.sha256(json.dumps(
+        [candidate_tuple(c) for c in candidates]).encode()).hexdigest()
+
+
+def single_pass_records(workload: str, config: str, result,
+                        reports: Dict[str, SystemReport]) -> List[dict]:
+    """The single-pass fixture's records of one (workload, config): one
+    per technology, ``reports`` mapping tech -> report of either
+    package."""
+    digest = candidate_digest(result.candidates)
+    return [{"workload": workload, "config": config, "tech": tech,
+             "digest": digest, "claimed": len(result.claimed),
+             **report_record(rep)} for tech, rep in reports.items()]
+
+
+_TIMING = re.compile(r"\s+\(\d+(\.\d+)?s\)$")
+
+
+def example_lines(text: str) -> List[str]:
+    """An example's printed lines as the fixture holds them: without the
+    line naming the device and without the timing in brackets."""
+    return [_TIMING.sub("", line) for line in text.splitlines()
+            if not line.startswith("device:")]
 
 
 def column_digests(columns: Dict[str, np.ndarray]) -> Dict[str, list]:
@@ -155,38 +215,44 @@ def report_record(rep: SystemReport) -> Dict[str, float]:
     return {f: getattr(rep, f) for f in RECORD_FIELDS}
 
 
-def price_design_points(st: StructuralTrace, device="cuda",
-                        stage_seconds: Optional[Dict[str, float]] = None
-                        ) -> Tuple[List[dict], Dict[str, Dict[str, int]]]:
-    """Price every design point of one workload on ``device``.
+def design_point_space(workloads: Sequence[str] = WORKLOADS):
+    """The golden reports' design points as one ``SweepSpace``: its
+    enumeration (workload, then :data:`CACHES`, :data:`LEVEL_SETS`,
+    :data:`TECHS`) is the golden file's record order."""
+    return SweepSpace(workloads=tuple(workloads), caches=tuple(CACHES),
+                      cim_levels=tuple(LEVEL_SETS), techs=TECHS)
 
-    One batched replay over :data:`CACHES`, one selection per level set,
-    one pricing per technology.  Returns the records (with their design
-    point) in the golden file's order and the replay counters per cache.
-    ``stage_seconds``, when given, accumulates host wall seconds per stage
-    (each stage ends by reading its result on the host)."""
-    stage = stage_seconds if stage_seconds is not None else {}
 
-    def timed(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        stage[name] = stage.get(name, 0.0) + time.perf_counter() - t0
-        return out
+def engine_design_points(engine, results
+                         ) -> Dict[str, Tuple[Dict[tuple, dict],
+                                              Dict[str, Dict[str, int]]]]:
+    """The golden file's view of ``engine.run(design_point_space(...))``.
 
-    trs = timed("replay", attach_cache_results_batch, st,
-                list(CACHES.values()), device=device)
-    records: List[dict] = []
-    counters: Dict[str, Dict[str, int]] = {}
-    for cache, tr in zip(CACHES, trs):
-        counters[cache] = tr.cache.counters()
-        for lv_name, levels in LEVEL_SETS.items():
-            cfg = OffloadConfig(cim_levels=levels)
-            res = timed("select", select_candidates, tr.trace, cfg,
-                        device=device)
-            shaped = timed("reshape", reshape, tr.trace, res)
-            for tech in TECHS:
-                rep = timed("price", profile_system, tr, cfg, tech,
-                            offload=res, reshaped=shaped, device=device)
-                records.append({"cache": cache, "cim_levels": lv_name,
-                                "tech": tech, **report_record(rep)})
-    return records, counters
+    Per workload: its records keyed by (cache, level set, tech), each with
+    :data:`RECORD_FIELDS` (``n_offloaded`` from the engine's memoized
+    selection), and the replay counters per cache, read from the engine's
+    memoized traces."""
+    level_name = {"+".join(v): k for k, v in LEVEL_SETS.items()}
+    out: Dict[str, Tuple[Dict[tuple, dict], Dict[str, Dict[str, int]]]] = {}
+    for rec in results:
+        records, counters = out.setdefault(rec.workload, ({}, {}))
+        cache = CacheOption.of(rec.cache)
+        lv = level_name[rec.cim_levels]
+        cfg = OffloadConfig(cim_levels=LEVEL_SETS[lv])
+        _, shaped = engine.analysis.offload(rec.workload, cache, cfg)
+        records[(rec.cache, lv, rec.tech)] = {
+            "cache": rec.cache, "cim_levels": lv, "tech": rec.tech,
+            **{f: getattr(rec, f) for f in RECORD_FIELDS
+               if f != "n_offloaded"},
+            "n_offloaded": shaped.n_offloaded}
+        if rec.cache not in counters:
+            counters[rec.cache] = engine.analysis.trace(
+                rec.workload, cache).cache.counters()
+    return out
+
+
+def golden_by_key(golden_records: List[dict]) -> Dict[tuple, dict]:
+    """The golden records of one workload keyed by (cache, level set,
+    tech)."""
+    return {(r["cache"], r["cim_levels"], r["tech"]): r
+            for r in golden_records}

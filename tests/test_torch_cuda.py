@@ -204,11 +204,14 @@ def test_segment_kernels_with_no_segments_launch_nothing(cuda):
 
 @pytest.mark.parametrize("name", ("NB", "KM", "LCS"))
 def test_design_points_on_the_card_equal_reference_reports(cuda, name):
+    from repro_torch.dse import DSEEngine
+
     golden = fixtures.reference_reports()["workloads"][name]
     accel.reset_launch_counts()
-    records, counters = fixtures.price_design_points(
-        fixtures.load_structural(name, device=cuda), device=cuda)
-    assert records == golden["records"]
+    engine = DSEEngine(device=cuda)
+    results = engine.run(fixtures.design_point_space([name]))
+    records, counters = fixtures.engine_design_points(engine, results)[name]
+    assert records == fixtures.golden_by_key(golden["records"])
     assert counters == golden["counters"]
     launches = accel.launch_counts()
     assert launches["replay"] > 0 and launches["place"] > 0
@@ -330,8 +333,8 @@ def test_place_kernel_matches_plain_on_fixtures(cuda, name):
             for d in ("cpu", cuda))):
         for levels in LEVEL_SETS:
             cfg = OffloadConfig(cim_levels=levels)
-            select_candidates(tr.trace, cfg, device="cpu")
-            select_candidates(tr_dev.trace, cfg, device=cuda)
+            select_candidates(tr.trace, cfg=cfg, device="cpu")
+            select_candidates(tr_dev.trace, cfg=cfg, device=cuda)
             part = tr.trace._struct["partitions"][cfg.partition_key()]
             part_dev = tr_dev.trace._struct["partitions"][cfg.partition_key()]
             if not part.protos:

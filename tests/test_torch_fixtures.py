@@ -7,19 +7,33 @@ program outputs, and ``meta_*`` versions) and ``reference_reports.json``
 (the reference's numpy-backend reports for every fig14 geometry x fig15
 level set x fig16 technology, with the replay counters).
 
-This file is the one generator of both.  Rerun it after a
+It also writes ``reference_single_pass.json``: the reference's
+single-pass Algorithm 1 (``OffloadConfig(require_same_bank=True)`` and
+``OffloadConfig(allow_cross_level=False, cim_levels=("L1",))``) on the 17
+workloads at 32K+256K, priced in SRAM and FeFET, and the lines that
+``examples/quickstart.py`` and ``examples/evaluate_workloads.py`` print.
+
+This file is the one generator of all three.  Rerun it after a
 ``TRACE_VM_VERSION`` or ``ANALYSIS_VERSION`` bump in the reference, or any
-change to the reference's workloads or pricing::
+change to the reference's workloads, selection, pricing or examples::
 
     PYTHONPATH=src python tests/test_torch_fixtures.py --regenerate
+    PYTHONPATH=src python tests/test_torch_fixtures.py --regenerate single_pass
 
-The tests hold each committed fixture to a fresh ``trace_structural``,
-column for column.  The traces depend on how the installed jax lowers each
-workload, so those comparisons skip when the running jax is not the one
-that wrote the fixtures.
+(the second form writes ``reference_single_pass.json`` alone).
+
+The tests hold each committed fixture to a fresh reference run:
+``trace_structural`` column for column, and the single-pass records and
+example lines.  Both depend on how the installed jax lowers each workload,
+so those comparisons skip when the running jax is not the one that wrote
+the fixtures.
 """
+import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
+import pathlib
 import sys
 
 import jax
@@ -70,7 +84,9 @@ def fixture_arrays(name):
 
 def reference_points(st):
     """The reference's numpy-backend records and counters for one
-    workload, in :func:`fixtures.price_design_points` order."""
+    workload, in the order of the port engine's design-point space
+    (:func:`fixtures.design_point_space`: cache, then level set, then
+    technology)."""
     records, counters = [], {}
     with accel.use_backend("numpy"):
         for cache, levels in fixtures.CACHES.items():
@@ -89,6 +105,69 @@ def reference_points(st):
     return records, counters
 
 
+EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
+
+
+def reference_example(name: str, argv=None, workloads=None) -> str:
+    """What ``examples/<name>.py`` of the reference prints, run in
+    process; ``workloads`` narrows its loop over the Table-IV programs."""
+    spec = importlib.util.spec_from_file_location(
+        f"reference_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if workloads is not None:
+        mod.WORKLOADS = tuple(workloads)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv) if argv is not None else mod.main()
+    assert rc == 0
+    return buf.getvalue()
+
+
+def reference_single_pass_records(name):
+    """The reference's single-pass records of one workload: a fresh trace
+    at :data:`fixtures.SINGLE_PASS_CACHE`, each of
+    :data:`fixtures.SINGLE_PASS_CONFIGS`, priced per technology."""
+    fn, args = build(name)
+    levels = fixtures.CACHES[fixtures.SINGLE_PASS_CACHE]
+    records = []
+    with accel.use_backend("numpy"):
+        tr = attach_cache_results(trace_structural(fn, *args),
+                                  ref_geometry(levels))
+        for config, kw in fixtures.SINGLE_PASS_CONFIGS.items():
+            cfg = RefOffloadConfig(**kw)
+            res = ref_select(tr.trace, cfg=cfg)
+            shaped = ref_reshape(tr.trace, res)
+            reports = {tech: ref_profile(tr, cfg, tech, offload=res,
+                                         reshaped=shaped)
+                       for tech in fixtures.TECHS}
+            records += fixtures.single_pass_records(name, config, res,
+                                                    reports)
+    return records
+
+
+def regenerate_single_pass():
+    doc = {"meta": {"jax_version": jax.__version__,
+                    "trace_vm_version": TRACE_VM_VERSION,
+                    "analysis_version": ANALYSIS_VERSION,
+                    "cache": fixtures.SINGLE_PASS_CACHE,
+                    "configs": {k: {f: list(v) if isinstance(v, tuple)
+                                    else v for f, v in kw.items()}
+                                for k, kw in
+                                fixtures.SINGLE_PASS_CONFIGS.items()}},
+           "records": [],
+           "examples": {"quickstart": fixtures.example_lines(
+               reference_example("quickstart")),
+               "evaluate_workloads": {}}}
+    for name in fixtures.WORKLOADS:
+        doc["records"] += reference_single_pass_records(name)
+        print(f"{name}: single pass recorded")
+    for tech in fixtures.TECHS:
+        doc["examples"]["evaluate_workloads"][tech] = fixtures.example_lines(
+            reference_example("evaluate_workloads", ["--tech", tech]))
+    fixtures.SINGLE_PASS_PATH.write_text(json.dumps(doc, indent=1) + "\n")
+
+
 def regenerate():
     fixtures.FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
     reports = {"meta": {"trace_vm_version": TRACE_VM_VERSION,
@@ -105,6 +184,7 @@ def regenerate():
         print(f"{name}: {st.n_instructions} instructions, "
               f"{len(records)} records")
     fixtures.REPORTS_PATH.write_text(json.dumps(reports, indent=1) + "\n")
+    regenerate_single_pass()
 
 
 # ======================================================================
@@ -148,8 +228,47 @@ def test_fixture_equals_fresh_trace(name):
         assert np.array_equal(committed[key], arr), key
 
 
+def _skip_unless_written_by_this_jax(written_by):
+    if written_by != jax.__version__:
+        pytest.skip(f"the fixture was written under jax {written_by}; this "
+                    f"is jax {jax.__version__}, which may lower the "
+                    "workloads differently")
+
+
+@pytest.mark.parametrize("name", fixtures.WORKLOADS)
+def test_single_pass_fixture_equals_fresh_reference(name):
+    """The committed single-pass records of one workload, and its line of
+    ``examples/evaluate_workloads.py`` in each technology, against a fresh
+    reference run."""
+    committed = fixtures.reference_single_pass()
+    _skip_unless_written_by_this_jax(committed["meta"]["jax_version"])
+    want = [r for r in committed["records"] if r["workload"] == name]
+    assert len(want) == len(fixtures.SINGLE_PASS_CONFIGS) \
+        * len(fixtures.TECHS)
+    assert reference_single_pass_records(name) == want
+    for tech in fixtures.TECHS:
+        lines = committed["examples"]["evaluate_workloads"][tech]
+        mine = [lines[0]] + [ln for ln in lines[1:]
+                             if ln.split()[0] == name]
+        assert fixtures.example_lines(reference_example(
+            "evaluate_workloads", ["--tech", tech], workloads=[name])) \
+            == mine
+
+
+def test_single_pass_fixture_quickstart_equals_fresh_reference():
+    committed = fixtures.reference_single_pass()
+    _skip_unless_written_by_this_jax(committed["meta"]["jax_version"])
+    assert len(committed["records"]) == 68
+    assert fixtures.example_lines(reference_example("quickstart")) == \
+        committed["examples"]["quickstart"]
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--regenerate"]:
+    if sys.argv[1:2] != ["--regenerate"] or \
+            sys.argv[2:] not in ([], ["single_pass"]):
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
-                 "--regenerate")
-    regenerate()
+                 "--regenerate [single_pass]")
+    if sys.argv[2:] == ["single_pass"]:
+        regenerate_single_pass()
+    else:
+        regenerate()

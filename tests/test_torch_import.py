@@ -217,9 +217,71 @@ _FORBIDDEN = re.compile(r"\bimport jax\b|\bfrom jax\b|\bimport repro\b"
                         r"|\bfrom repro\.")
 
 
+_BLOCKED_ENTRY_POINTS = r"""
+import contextlib, io, json, pathlib, runpy, sys, tempfile
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+from repro_torch.bench import run
+from repro_torch.core import OffloadConfig, attach_cache_results
+from repro_torch.core import select_candidates
+from repro_torch.workloads import fixtures
+outs = {}
+for example, argv in (("torch_quickstart", []),
+                      ("torch_dse_cim", ["--workload", "NB"])):
+    sys.argv = [example, "--device", "cpu", *argv]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            runpy.run_path(f"examples/{example}.py", run_name="__main__")
+        except SystemExit as exc:
+            outs[example + "_rc"] = exc.code
+    outs[example] = buf.getvalue()
+doc_path = pathlib.Path(tempfile.mkdtemp()) / "timing.json"
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = run.main(["timing", "--device", "cpu", "--workloads", "NB",
+                   "--json", str(doc_path)])
+tr = attach_cache_results(fixtures.load_structural("NB", device="cpu"),
+                          device="cpu")
+res = select_candidates(tr.trace, cfg=OffloadConfig(require_same_bank=True),
+                        device="cpu")
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"quickstart": fixtures.example_lines(
+                      outs["torch_quickstart"]),
+                  "rcs": [outs["torch_quickstart_rc"],
+                          outs["torch_dse_cim_rc"], rc],
+                  "dse_cim": "(trace builds 3, selection builds 9)"
+                             in outs["torch_dse_cim"],
+                  "timing": json.loads(doc_path.read_text())["workloads"],
+                  "single_pass": fixtures.candidate_digest(res.candidates),
+                  "loaded": loaded}))
+"""
+
+
+def test_entry_points_run_with_jax_repro_and_triton_blocked():
+    """The examples, ``python -m repro_torch.bench timing`` and the
+    single-pass selection import nothing of the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_ENTRY_POINTS],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref = json.loads((ROOT / "src/repro_torch/workloads/fixtures/"
+                      "reference_single_pass.json").read_text())
+    assert out["loaded"] == []
+    assert out["rcs"] == [0, 0, 0]
+    assert out["quickstart"] == ref["examples"]["quickstart"]
+    assert out["dse_cim"] and out["timing"] == ["NB"]
+    want = next(r for r in ref["records"] if r["workload"] == "NB"
+                and r["config"] == "same_bank")
+    assert out["single_pass"] == want["digest"]
+
+
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 10
     hits = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
             for f in files
@@ -243,7 +305,7 @@ def test_cuda_device_without_a_card_raises():
         attach_cache_results(st)
     tr = attach_cache_results(st, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        select_candidates(tr.trace, OffloadConfig())
+        select_candidates(tr.trace, cfg=OffloadConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_system(tr, OffloadConfig())
     # the CPU run of the same calls works
@@ -317,4 +379,28 @@ def test_service_entry_points_on_cuda_without_a_card_raise(tmp_path):
     from repro_torch.bench import run
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(["service", "--json", str(tmp_path / "s.json")])
+    assert not list(tmp_path.iterdir())
+
+
+def test_new_entry_points_on_cuda_without_a_card_raise(tmp_path):
+    """``bench timing`` and the examples run on the card by default: with
+    no card they raise and write nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='cuda' is valid here")
+    import importlib.util
+    from repro_torch.bench import run
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["timing", "--workloads", "NB", "--json",
+                  str(tmp_path / "t.json")])
+    for name, argv in (("torch_quickstart", []),
+                       ("torch_evaluate_workloads", []),
+                       ("torch_dse_cim", ["--workload", "NB",
+                                          "--cache-dir",
+                                          str(tmp_path / "store")])):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(argv)
     assert not list(tmp_path.iterdir())

@@ -106,7 +106,7 @@ def test_design_points_match_reference(name, cache):
         cfg = OffloadConfig(cim_levels=levels)
         with ref_accel.use_backend("numpy"):
             ref_res = ref_select(ref_tr.trace, cfg=ref_cfg)
-        res = select_candidates(tr.trace, cfg, device="cpu")
+        res = select_candidates(tr.trace, cfg=cfg, device="cpu")
         assert [cand_tuple(c) for c in res.candidates] == \
             [cand_tuple(c) for c in ref_res.candidates], lv_name
         assert res.claimed == ref_res.claimed

@@ -160,7 +160,7 @@ def test_plain_placement_matches_place_sorted_on_fixtures(
     ct = fixture_traces[name][geometry].trace
     for levels in LEVEL_SETS:
         cfg = OffloadConfig(cim_levels=levels)
-        select_candidates(ct, cfg, device="cpu")      # memoizes the partition
+        select_candidates(ct, cfg=cfg, device="cpu")      # memoizes the partition
         part = ct._struct["partitions"][cfg.partition_key()]
         got = place.place_arrays(part, ct, cfg)
         assert torch.equal(got, place.place_sorted(part, ct, cfg)), levels
