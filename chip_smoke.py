@@ -138,7 +138,21 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   and no launch; ``python -m repro_torch.bench timing
                   --workloads NB`` and its doc; each part's replay and
                   placement launches;
-  11. result   -- the kernel table as one JSON line, the nvidia-smi line,
+  11. serve    -- the model zoo's serving path (``repro_torch.models``,
+                  no kernel: the reference's model path reaches no Pallas
+                  kernel): the ten reduced archs and gemma3-1b at its
+                  published widths cut to 6 layers (window 512 on five,
+                  prompt 576), f32, prefill and 4 greedy decode steps on the
+                  card from ``numpy_params``, tokens == and last-position
+                  logits within 1e-4 of the committed
+                  ``reference_serve.json``; then ``python -m
+                  repro_torch.launch.serve --arch gemma3-1b --preset full``
+                  (26 layers, bf16) as a process of its own, B=4, prompts of
+                  64 and 1024 tokens, 32 generated: prefill ms, decode ms a
+                  step, tokens/s, and the step's share of its bytes bound
+                  (parameters + the KV each mask keeps + logits, at
+                  3.35 TB/s);
+  12. result   -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -1626,6 +1640,182 @@ def entry_points_phase(dev, traces, smi):
                 failures=failures), phase_launches
 
 
+
+def decode_bytes_bound(cfg, batch, prompt_len, gen):
+    """The least bytes one timed decode step of ``launch.serve`` must move,
+    averaged over its steps: every parameter read once (the tied embedding
+    is the head), the keys and values each layer's mask keeps (window or
+    all positions so far; bf16 cache), and the bf16 logits written.
+    Returns (bytes, its parts)."""
+    import math as _math
+    from repro_torch.models.transformer import layer_windows, param_layout
+
+    def leaves(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from leaves(v)
+        else:
+            yield node
+    params = sum(_math.prod(leaf.shape) * torch.empty(
+        (), dtype=leaf.torch_dtype).element_size()
+        for leaf in leaves(param_layout(cfg)))
+    row = batch * cfg.n_kv_heads * cfg.head_dim * 2 * 2      # k and v, bf16
+    positions = range(prompt_len, prompt_len + gen - 1)
+    kv = sum(sum(min(p + 1, int(w)) if w else p + 1
+                 for w in layer_windows(cfg))
+             * row for p in positions) / len(positions)
+    logits = batch * cfg.padded_vocab * 2
+    return params + kv + logits, dict(param_bytes=params, kv_bytes=kv,
+                                      logits_bytes=logits)
+
+
+def serve_phase(dev, smi):
+    """Phase 11: the model zoo's serving path on ``dev``.  (a) Each case of
+    ``repro_torch.models.fixtures.serve_cases`` -- the ten reduced archs
+    and gemma3-1b at its published widths cut to 6 layers, f32 -- run
+    greedily on the card from ``numpy_params`` and held to the reference's
+    ``reference_serve.json``: tokens ==, logits within ``LOGITS_TOL``.  (b)
+    ``python -m repro_torch.launch.serve --arch gemma3-1b --preset full``
+    (26 layers, bf16) as a process of its own, B=4 with prompts of 64 and
+    1024 tokens and 32 generated, beside the decode step's bytes bound.
+    Returns the summary for the detail file (``failures`` lists misses)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import convert, fixtures
+
+    from repro_torch import kernels as cim_kernels
+    from repro_torch.core import accel
+
+    t_phase = time.perf_counter()
+    failures = []
+    doc = fixtures.load()
+    # the serving path, like the reference's model path, has no kernel of
+    # its own and calls none of K1-K8: the counts stay 0 over the phase
+    accel.reset_launch_counts()
+    cim_kernels.reset_launch_counts()
+    print(f"serve: f32 products on the card with TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}",
+          flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append("TF32 matmuls are on: the f32 comparison needs "
+                        "them off")
+    cases = {}
+    for case in fixtures.serve_cases():
+        t0 = time.perf_counter()
+        params = convert.from_reference(
+            case.cfg, convert.numpy_params(case.cfg, fixtures.SEED_PARAMS),
+            device=dev)
+        t1 = time.perf_counter()
+        tokens, logits = fixtures.greedy_run(params, case, device=dev)
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t1
+        res = fixtures.compare(doc["cases"][case.name], tokens, logits)
+        res.update(load_s=t1 - t0, run_s=run_s, tokens=tokens.tolist())
+        cases[case.name] = res
+        print(f"  {case.name:24s} tokens == {res['tokens_equal']}, logits "
+              f"max |err| {res['max_abs_err']:.3g} "
+              f"({res['share_of_tol']:.4f} of {fixtures.LOGITS_TOL}); "
+              f"weights {t1 - t0:.3f} s, prefill + {case.steps} steps "
+              f"{run_s:.3f} s", flush=True)
+        if not res["ok"]:
+            failures.append(f"serve fixture {case.name}: {res}")
+        del params
+        torch.cuda.empty_cache()
+
+    cfg = get_config("gemma3-1b")
+    runs = []
+    for prompt_len in (64, 1024):
+        batch, gen = 4, 32
+        argv = ["-m", "repro_torch.launch.serve", "--arch", "gemma3-1b",
+                "--preset", "full", "--batch", str(batch), "--prompt-len",
+                str(prompt_len), "--gen", str(gen)]
+        rc, out, err, secs, _ = _run_entry_point(argv)
+        lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+        timing = next((json.loads(ln) for ln in out.splitlines()
+                       if ln.startswith("{")), None)
+        if rc != 0 or len(lines) != 2 or timing is None \
+                or timing["device"] != torch.cuda.get_device_name(0):
+            failures.append(f"serve B={batch} prompt={prompt_len}: exit "
+                            f"{rc} {out[-1500:]!r} {err[-1500:]!r}")
+            continue
+        n_bytes, parts = decode_bytes_bound(cfg, batch, prompt_len, gen)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        step_ms = timing["decode_s"] / timing["decode_steps"] * 1e3
+        run = dict(batch=batch, prompt_len=prompt_len, gen=gen,
+                   prefill_ms=timing["prefill_s"] * 1e3,
+                   decode_ms_per_step=step_ms,
+                   tokens_per_s=timing["tokens_per_s"],
+                   decode_bound_ms=bound_ms, bound_share=bound_ms / step_ms,
+                   param_count=cfg.param_count(), process_s=secs,
+                   lines=lines, **parts)
+        runs.append(run)
+        print(f"  serve gemma3-1b full bf16 B={batch} prompt={prompt_len} "
+              f"gen={gen}: prefill {run['prefill_ms']:.3f} ms, decode "
+              f"{step_ms:.4f} ms a step ({run['tokens_per_s']:.2f} tok/s); "
+              f"decode bytes bound {bound_ms:.4f} ms (parameters "
+              f"{parts['param_bytes'] / 1e9:.4f} GB for param_count() = "
+              f"{cfg.param_count():,}, KV {parts['kv_bytes'] / 1e6:.3f} MB "
+              f"a step, logits {parts['logits_bytes'] / 1e6:.3f} MB, at "
+              f"3.35 TB/s): the step at {run['bound_share']:.4f} of it; "
+              f"{secs:.1f} s for the process", flush=True)
+        print("   " + " / ".join(lines), flush=True)
+    # (c) where a decode step's time goes: the first run's model and step
+    # in this process, traced by torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import inputs as minputs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import steps as steps_mod
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(gen, cfg, device=dev)
+        batch = minputs.make_train_batch(gen, cfg, 4, 64, device=dev)
+        batch.pop("labels")
+        tok, cache = steps_mod.make_prefill_step(cfg, 96)(params, batch)
+        decode = steps_mod.make_decode_step(cfg)
+
+        def step():
+            decode(params, tok, cache, 64)
+        names = {}
+        device_ms, kernels = profiled_device_ms(step, 10, names)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 10
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step()
+            torch.cuda.synchronize()
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        top_ops = {e.key: [round(e.self_cpu_time_total / 1e3, 4), e.count]
+                   for e in ops[:8]}
+        del params, cache
+        torch.cuda.empty_cache()
+    profile_doc = dict(step_ms=step_ms, device_ms=device_ms,
+                       kernels_per_step=kernels,
+                       idle_share=(None if device_ms is None
+                                   else 1 - device_ms / step_ms),
+                       top_host_ops_ms_count=top_ops)
+    print(f"  decode step (B=4, position 64) in process: {step_ms:.4f} ms "
+          f"wall, device busy {device_ms} ms in {kernels} kernels, idle "
+          f"share {profile_doc['idle_share']}; host self ms by op "
+          + json.dumps(top_ops), flush=True)
+    if device_ms is None:
+        failures.append("serve: the profiled decode step ran nothing on "
+                        "the device")
+
+    launches = {**accel.launch_counts(), **cim_kernels.launch_counts()}
+    print("  kernel launches in process over the phase (none expected): "
+          + json.dumps(launches), flush=True)
+    if any(launches.values()):
+        failures.append(f"serve: kernels launched on the serving path: "
+                        f"{launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"serve: {phase_s:.3f} s on {torch.cuda.get_device_name(0)} "
+          f"({smi})", flush=True)
+    return dict(cases=cases, runs=runs, decode_profile=profile_doc,
+                launches=launches, phase_s=phase_s, failures=failures)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -2157,7 +2347,16 @@ def main():
     for name in MAIN_PATH_KERNELS:
         kernels[name]["entry_point_launches"] = entry_launches[name]
 
-    # --------------------------------------------------------- 11. result
+    # --------------------------------------------------------- 11. serve
+    serve = serve_phase(dev, smi)
+    detail["serve"] = serve
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if serve["failures"]:
+        for f in serve["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(serve['failures'])} failures in the serve phase")
+
+    # --------------------------------------------------------- 12. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]

@@ -1,0 +1,20 @@
+"""yi-34b — dense llama-arch GQA. [arXiv:2403.04652; hf]
+
+60L d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="yi-34b",
+    family="dense",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=20_480,
+    vocab_size=64_000,
+    rope_theta=5_000_000.0,
+    tie_embeddings=False,
+    source="arXiv:2403.04652",
+)

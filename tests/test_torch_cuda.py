@@ -12,7 +12,9 @@ plain versions (``repro_torch.kernels.ref``) within the reference's own f32
 bounds (2e-5 for attention, 2e-3 for mLSTM).  A bf16 result is held to
 atol 2e-3 and rtol 1e-2: both sides compute in f32 from the same bf16
 inputs and round once, so they differ by at most about one bf16 ulp
-(2**-7 of the value) plus the f32 gap.
+(2**-7 of the value) plus the f32 gap.  The model zoo's serving path,
+which has no kernel of its own, is held to the reference's committed
+``reference_serve.json`` (tokens ==, f32 logits within 1e-4).
 """
 import types
 
@@ -663,3 +665,27 @@ def test_service_sweep_launches_replay_and_placement(cuda):
         assert got.records == want
         client.sweep(["NB"], **req)
         assert client.metrics()["accel"]["launches"] == launches
+
+
+def _serve_case_names():
+    from repro_torch.models import fixtures as serve_fixtures
+    return [c.name for c in serve_fixtures.serve_cases()]
+
+
+@pytest.mark.parametrize("name", _serve_case_names())
+def test_serve_path_on_card_matches_reference_fixture(cuda, name):
+    """The model zoo's serving path on the card (no kernel of its own):
+    prefill and 4 greedy decode steps in f32 from the numpy-drawn
+    weights, tokens == and logits within ``LOGITS_TOL`` of the
+    reference's ``reference_serve.json`` (as ``chip_smoke.py`` phase 11)."""
+    from repro_torch.models import convert
+    from repro_torch.models import fixtures as serve_fixtures
+
+    case = next(c for c in serve_fixtures.serve_cases() if c.name == name)
+    params = convert.from_reference(
+        case.cfg, convert.numpy_params(case.cfg, serve_fixtures.SEED_PARAMS),
+        device=cuda)
+    tokens, logits = serve_fixtures.greedy_run(params, case, device=cuda)
+    res = serve_fixtures.compare(serve_fixtures.load()["cases"][name],
+                                 tokens, logits)
+    assert res["ok"], res

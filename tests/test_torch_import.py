@@ -404,3 +404,65 @@ def test_new_entry_points_on_cuda_without_a_card_raise(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main(argv)
     assert not list(tmp_path.iterdir())
+
+
+_BLOCKED_SERVE = r"""
+import contextlib, importlib, io, json, pkgutil, sys
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+import repro_torch
+mods = []
+for pkg in ("configs", "models", "train", "launch"):
+    p = importlib.import_module("repro_torch." + pkg)
+    for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
+        importlib.import_module(m.name)
+        mods.append(m.name)
+from repro_torch.launch import serve
+from repro_torch.models import convert, fixtures
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = serve.main(["--device", "cpu", "--arch", "xlstm-125m", "--batch",
+                     "1", "--prompt-len", "8", "--gen", "2"])
+case = next(c for c in fixtures.serve_cases() if c.name == "qwen1.5-0.5b")
+params = convert.from_reference(
+    case.cfg, convert.numpy_params(case.cfg, fixtures.SEED_PARAMS))
+res = fixtures.compare(fixtures.load()["cases"][case.name],
+                       *fixtures.greedy_run(params, case))
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"modules": mods, "rc": rc,
+                  "serve_lines": sum(ln.startswith("[serve]")
+                                     for ln in buf.getvalue().splitlines()),
+                  "fixture_ok": res["ok"], "loaded": loaded}))
+"""
+
+
+def test_model_zoo_runs_with_jax_repro_and_triton_blocked():
+    """Every module of ``repro_torch.{configs,models,train,launch}``
+    imports, the serve driver runs on the CPU and a reduced arch holds
+    its fixture, with none of the reference's packages importable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SERVE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert {"repro_torch.configs.registry", "repro_torch.models.convert",
+            "repro_torch.models.fixtures", "repro_torch.train.steps",
+            "repro_torch.launch.serve"} <= set(out["modules"])
+    assert (out["rc"], out["serve_lines"], out["fixture_ok"]) == (0, 2, True)
+
+
+def test_serve_without_a_card_exits_nonzero():
+    """``python -m repro_torch.launch.serve`` runs on the card by default:
+    with no card it fails and serves nothing; it never falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='cuda' is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", "qwen1.5-0.5b"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "[serve]" not in proc.stdout
