@@ -152,7 +152,27 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   step, tokens/s, and the step's share of its bytes bound
                   (parameters + the KV each mask keeps + logits, at
                   3.35 TB/s);
-  12. result   -- the kernel table as one JSON line, the nvidia-smi line,
+  12. train    -- the model zoo's training path (``repro_torch.optim``,
+                  ``train``, ``ckpt``, ``ft``, ``launch.train``; no kernel:
+                  the reference trains by ``jax.grad`` through plain jnp):
+                  the cases of ``reference_train.json`` (the ten reduced
+                  archs, qwen1.5-0.5b with two microbatches and int8 error
+                  feedback and with remat "block", gemma3-1b at its
+                  published widths cut to 6 layers, sequence 576), f32,
+                  trained on the card from ``numpy_params``, each step's
+                  metrics and the final parameters held to the reference's;
+                  ``python -m repro_torch.launch.train --arch gemma3-1b
+                  --preset full`` (26 layers, bf16, B=4, S=1024, 8 steps,
+                  remat "block") as a process of its own: step ms, tokens/s,
+                  peak memory, the step's FLOPs beside the bf16 peak
+                  (989 TFLOP/s), the final snapshot's bytes and seconds;
+                  ``examples/torch_train_resume.py`` (a recovered failure,
+                  then a fresh process resuming from step 29); the
+                  reference's learnable-data check (qwen1.5-0.5b reduced,
+                  40 steps, last loss below 0.7 of the first); one
+                  full-width step profiled in process (device ms, kernels,
+                  idle share);
+  13. result   -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -1816,6 +1836,211 @@ def serve_phase(dev, smi):
                 launches=launches, phase_s=phase_s, failures=failures)
 
 
+def train_phase(dev, smi):
+    """Phase 12: the model zoo's training path on ``dev``.  (a) Each case
+    of ``repro_torch.train.fixtures.train_cases`` -- the ten reduced archs,
+    qwen1.5-0.5b with two microbatches and int8 error feedback and with
+    remat "block", gemma3-1b at its published widths cut to 6 layers,
+    f32 -- trained on the card from ``numpy_params`` and held to the
+    reference's ``reference_train.json``.  (b) ``python -m
+    repro_torch.launch.train --arch gemma3-1b --preset full`` (26 layers,
+    bf16), B=4, S=1024, 8 steps, remat "block", as a process of its own:
+    step ms, tokens/s, peak memory, FLOPs and their share of the bf16
+    peak, the final snapshot's bytes and seconds.  (c)
+    ``examples/torch_train_resume.py``: one recovered failure, then a
+    fresh process resuming from the last snapshot.  (d) The reference's
+    learnable-data check.  (e) One full-width step in process under
+    ``torch.profiler``.  Returns the summary for the detail file
+    (``failures`` lists misses)."""
+    import math as _math
+    import shutil
+    import statistics
+
+    from repro_torch import kernels as cim_kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core import accel
+    from repro_torch.models import convert
+    from repro_torch.train import fixtures as train_fixtures
+    from repro_torch.train import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    failures = []
+    doc = train_fixtures.load()
+    # training, like serving, has no kernel of its own and calls none of
+    # K1-K8: the counts stay 0 over the phase
+    accel.reset_launch_counts()
+    cim_kernels.reset_launch_counts()
+    print(f"train: f32 products on the card with TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}",
+          flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append("TF32 matmuls are on: the f32 comparison needs "
+                        "them off")
+    cases = {}
+    for case in train_fixtures.train_cases():
+        t0 = time.perf_counter()
+        params = convert.from_reference(
+            case.cfg, convert.numpy_params(case.cfg,
+                                           train_fixtures.SEED_PARAMS),
+            device=dev)
+        t1 = time.perf_counter()
+        metrics, final = train_fixtures.train_run(params, case, device=dev)
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t1
+        res = train_fixtures.compare(doc["cases"][case.name], metrics, final)
+        res.update(load_s=t1 - t0, run_s=run_s)
+        cases[case.name] = res
+        print(f"  {case.name:26s} metrics at {res['metric_share_of_tol']:.4f}"
+              f" of their bound, parameters max |err| "
+              f"{res['param_max_abs_err']:.3g} ({res['param_max_abs_err'] / res['param_tol']:.4f}"
+              f" of {res['param_tol']:.3g}); losses "
+              f"{[round(x, 6) for x in res['losses']]}; weights "
+              f"{t1 - t0:.3f} s, {case.steps} steps {run_s:.3f} s",
+              flush=True)
+        if not res["ok"]:
+            failures.append(f"train fixture {case.name}: {res}")
+        del params, final
+        torch.cuda.empty_cache()
+
+    # (b) full width, bf16, as a user runs it
+    cfg = get_config("gemma3-1b")
+    B, S, steps = 4, 1024, 8
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_")
+    full = None
+    try:
+        argv = ["-m", "repro_torch.launch.train", "--arch", "gemma3-1b",
+                "--preset", "full", "--batch", str(B), "--seq-len", str(S),
+                "--steps", str(steps), "--remat", "block", "--save-every",
+                "0", "--ckpt-dir", ckpt_dir]
+        rc, out, err, secs, _ = _run_entry_point(argv)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    lines = [ln for ln in out.splitlines() if ln.startswith("[train]")]
+    timing = next((json.loads(ln) for ln in out.splitlines()
+                   if ln.startswith("{")), None)
+    if rc != 0 or timing is None or len(lines) < 2 \
+            or timing["device"] != torch.cuda.get_device_name(0):
+        failures.append(f"train gemma3-1b full: exit {rc} {out[-1500:]!r} "
+                        f"{err[-1500:]!r}")
+    else:
+        fm = timing["final_metrics"]
+        median = statistics.median(timing["step_ms"][1:])
+        flops = timing["flops_per_step"]
+        share = flops / BF16_OPS_PER_S / (median / 1e3)
+        full = dict(batch=B, seq_len=S, steps=steps, remat="block",
+                    step_ms=timing["step_ms"], median_step_ms=median,
+                    tokens_per_s=B * S / (median / 1e3),
+                    peak_memory_bytes=timing["peak_memory_bytes"],
+                    flops_per_step=flops,
+                    flops_bound_ms=flops / BF16_OPS_PER_S * 1e3,
+                    bf16_peak_share=share, ckpt_bytes=timing["ckpt_bytes"],
+                    ckpt_s=timing["ckpt_s"], final_metrics=fm,
+                    param_count=cfg.param_count(), process_s=secs,
+                    lines=lines)
+        print(f"  train gemma3-1b full bf16 B={B} S={S} remat block, "
+              f"{steps} steps: median step {median:.3f} ms over steps 2-"
+              f"{steps} ({full['tokens_per_s']:.1f} tokens/s); first step "
+              f"{timing['step_ms'][0]:.3f} ms; peak memory "
+              f"{timing['peak_memory_bytes'] / 2 ** 30:.3f} GiB; "
+              f"{flops / 1e12:.4f} TFLOP a step (6 x {cfg.param_count():,}"
+              f" parameters x {B * S} tokens + the live attention scores), "
+              f"{full['flops_bound_ms']:.3f} ms at 989 TFLOP/s: the step "
+              f"at {share:.4f} of the bf16 peak; final snapshot "
+              f"{timing['ckpt_bytes'] / 1e9:.3f} GB in "
+              f"{timing['ckpt_s']:.3f} s; last loss {fm['loss']:.4f}, "
+              f"grad_norm {fm['grad_norm']:.4f}; {secs:.1f} s for the "
+              f"process", flush=True)
+        print("   " + " / ".join(lines), flush=True)
+        if not all(_math.isfinite(fm[k]) for k in ("loss", "grad_norm")):
+            failures.append(f"train gemma3-1b full: non-finite {fm}")
+
+    # (c) recovery: the resume example, each run on the card
+    rc, out, err, secs, _ = _run_entry_point(
+        [str(ROOT / "examples" / "torch_train_resume.py")])
+    done = [ln for ln in out.splitlines() if ln.startswith("[train] done")]
+    resume = dict(rc=rc, process_s=secs, done=done)
+    print(f"  resume example: exit {rc} in {secs:.1f} s; " + " / ".join(
+        ln[:120] for ln in done), flush=True)
+    if rc != 0 or len(done) != 2 or "recoveries=1" not in done[0] \
+            or "resumed_from=29" not in done[1]:
+        failures.append(f"resume example: exit {rc} {out[-1500:]!r} "
+                        f"{err[-1500:]!r}")
+
+    # (d) the reference's learnable-data check
+    qcfg = reduced_config("qwen1.5-0.5b")
+    state = steps_mod.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), qcfg, device=dev)
+    step = steps_mod.make_train_step(qcfg, TrainConfig(
+        learning_rate=3e-3, total_steps=40, warmup_steps=4))
+    toks = (torch.arange(32, dtype=torch.int32, device=dev)[None]
+            .repeat(4, 1) % qcfg.vocab_size)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(40):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    learn = dict(first=losses[0], last=losses[-1],
+                 ok=losses[-1] < 0.7 * losses[0],
+                 seconds=time.perf_counter() - t0)
+    print(f"  learnable data (qwen1.5-0.5b reduced, 40 steps): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses[-1] / losses[0]:.4f}"
+          f" of the first; bound 0.7), {learn['seconds']:.2f} s", flush=True)
+    if not learn["ok"]:
+        failures.append(f"learnable data: {learn}")
+    del state
+
+    # (e) where a full-width step's time goes: in this process, traced
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps_mod.init_train_state(gen, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           dtype=torch.int32, device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = steps_mod.make_train_step(cfg, TrainConfig(
+        total_steps=steps, warmup_steps=1, remat="block"))
+
+    def one():
+        step(state, batch)
+    device_ms, kernels = profiled_device_ms(one, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 2
+    # one more step traced: the device time of each kernel
+    events, _ = device_ms_by_kernel(one)
+    top = sorted(events.items(), key=lambda kv: -kv[1][0])[:10]
+    profile_doc = dict(step_ms=step_ms, device_ms=device_ms,
+                       kernels_per_step=kernels,
+                       idle_share=(None if device_ms is None
+                                   else 1 - device_ms / step_ms),
+                       top_device_ms_count={k: list(v) for k, v in top})
+    print(f"  train step (gemma3-1b full, bf16, B={B}, S={S}, remat block) "
+          f"in process: {step_ms:.3f} ms wall, device busy {device_ms} ms "
+          f"in {kernels} kernels, idle share {profile_doc['idle_share']}; "
+          f"largest device events (ms, count): " + json.dumps(
+              {k[:70]: [round(v[0], 3), v[1]] for k, v in top}), flush=True)
+    if device_ms is None:
+        failures.append("train: the profiled step ran nothing on the device")
+    del state, batch
+    torch.cuda.empty_cache()
+
+    launches = {**accel.launch_counts(), **cim_kernels.launch_counts()}
+    print("  kernel launches in process over the phase (none expected): "
+          + json.dumps(launches), flush=True)
+    if any(launches.values()):
+        failures.append(f"train: kernels launched on the training path: "
+                        f"{launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"train: {phase_s:.3f} s on {torch.cuda.get_device_name(0)} "
+          f"({smi})", flush=True)
+    return dict(cases=cases, full=full, resume=resume, learnable=learn,
+                step_profile=profile_doc, launches=launches,
+                phase_s=phase_s, failures=failures)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -2356,7 +2581,16 @@ def main():
             print("MISMATCH", f)
         fail(f"{len(serve['failures'])} failures in the serve phase")
 
-    # --------------------------------------------------------- 12. result
+    # --------------------------------------------------------- 12. train
+    trained = train_phase(dev, smi)
+    detail["train"] = trained
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if trained["failures"]:
+        for f in trained["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(trained['failures'])} failures in the train phase")
+
+    # --------------------------------------------------------- 13. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]

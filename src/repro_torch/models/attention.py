@@ -1,12 +1,15 @@
 """GQA attention: chunked-flash train/prefill, cached decode, cross-attn
 (port of ``repro.models.attention``).
 
-The prefill path is the reference's *chunked online softmax*: a loop over
-KV blocks that never materializes the (Sq, Skv) score matrix, with the
-scores and the running max, sum and accumulator in f32.  It is plain torch,
-as the reference's is plain jnp: neither package's model path calls the
-flash-attention kernel of ``kernels/`` (whose contract has no ``q_offset``,
-``kv_len`` or softcap).
+The train/prefill path is the reference's *chunked online softmax*: a loop
+over KV blocks that never materializes the (Sq, Skv) score matrix, with the
+scores and the running max, sum and accumulator in f32.  Its gradient is
+the reference's ``custom_vjp`` (``_flash_bwd``): :class:`_Flash` saves the
+output and the log-sum-exp and recomputes each block's probabilities from
+them.  It is plain torch, as the reference's is plain jnp: neither
+package's model path calls the flash-attention kernel of ``kernels/``
+(whose contract has no ``q_offset``, ``kv_len`` or softcap, and no
+backward).
 
 Which path a layer takes follows the reference: a window passed as a
 Python ``int`` is *static* and may take the banded (block-skipping) path;
@@ -77,6 +80,10 @@ def _block_mask(q_pos, k_pos, causal, window, kv_len, skv_bound):
     return mask & (q_pos[:, None] - k_pos[None, :] < w)
 
 
+def _acc_dtype(x) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _flash_fwd(causal, block, softcap, q, k, v, window, q_offset, kv_len):
     """The forward of the reference's ``_flash_fwd_impl``: its
     ``lax.scan`` over KV blocks as a loop.  Returns (out, lse)."""
@@ -91,18 +98,20 @@ def _flash_fwd(causal, block, softcap, q, k, v, window, q_offset, kv_len):
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     dev = q.device
     # scores and P.V run in f32 from the inputs' values, as the
-    # reference's preferred_element_type=f32 products do
-    qh = q.reshape(B, Sq, Hkv, G, dh).float()
+    # reference's preferred_element_type=f32 products do (f64 inputs, as
+    # in a gradient check, stay f64)
+    acc_t = _acc_dtype(q)
+    qh = q.reshape(B, Sq, Hkv, G, dh).to(acc_t)
     q_pos = q_offset + torch.arange(Sq, dtype=torch.float32, device=dev)
     skv_bound = float(Skv + Sq + 1)
 
-    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hkv, G, Sq, dh), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=acc_t, device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=acc_t, device=dev)
+    acc = torch.zeros((B, Hkv, G, Sq, dh), dtype=acc_t, device=dev)
     for i in range(nblk):
         kblk = k[:, i * block:(i + 1) * block]
         vblk = v[:, i * block:(i + 1) * block]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kblk.float()) * scale
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kblk.to(acc_t)) * scale
         if softcap:
             s = torch.tanh(s / softcap) * softcap
         k_pos = float(i * block) + torch.arange(block, dtype=torch.float32,
@@ -114,12 +123,85 @@ def _flash_fwd(causal, block, softcap, q, k, v, window, q_offset, kv_len):
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p.to(vblk.dtype).float(), vblk.float())
+            "bhgqk,bkhd->bhgqd", p.to(vblk.dtype).to(acc_t), vblk.to(acc_t))
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     lse = m + torch.log(torch.clamp_min(l, 1e-30))           # (B,Hkv,G,Sq)
     out = out.reshape(B, Hkv * G, Sq, dh).permute(0, 2, 1, 3).to(q.dtype)
     return out, lse
+
+
+def _flash_bwd(causal, block, q, k, v, out, lse, dout, window, q_offset,
+               kv_len):
+    """The reference's ``_flash_bwd``, FA2 style: each block's ``p``
+    recomputed from the saved LSE.  Like the reference it recomputes the
+    scores without the softcap's ``tanh``.  Returns (dq, dk, dv) in the
+    dtypes of q, k and v."""
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    nblk = -(-Skv // block)
+    pad = nblk * block - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    # products of the inputs' values accumulate in f32, as the reference's
+    # preferred_element_type=f32 products do
+    acc_t = _acc_dtype(q)
+    qh = q.reshape(B, Sq, Hkv, G, dh).to(acc_t)
+    doh = dout.reshape(B, Sq, Hkv, G, dh).to(acc_t)
+    outh = out.reshape(B, Sq, Hkv, G, dh)
+    # D_t = sum_d dout_t * out_t  (rowsum of p*dp)
+    D = torch.einsum("bqhgd,bqhgd->bhgq", doh, outh.to(acc_t))
+    q_pos = q_offset + torch.arange(Sq, dtype=torch.float32, device=dev)
+    skv_bound = float(Skv + Sq + 1)
+
+    dq = torch.zeros((B, Sq, Hkv, G, dh), dtype=acc_t, device=dev)
+    dks, dvs = [], []
+    for i in range(nblk):
+        kblk = k[:, i * block:(i + 1) * block].to(acc_t)
+        vblk = v[:, i * block:(i + 1) * block].to(acc_t)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kblk) * scale
+        k_pos = float(i * block) + torch.arange(block, dtype=torch.float32,
+                                                device=dev)
+        mask = _block_mask(q_pos, k_pos, causal, window, kv_len, skv_bound)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                  # (B,Hkv,G,Sq,blk)
+        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, doh))
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doh, vblk)
+        ds = p * (dp - D[..., None]) * scale
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kblk)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qh))
+    dk = torch.cat(dks, dim=1)[:, :Skv]
+    dv = torch.cat(dvs, dim=1)[:, :Skv]
+    return (dq.reshape(B, Sq, H, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` (``custom_vjp``): forward
+    :func:`_flash_fwd`, saving (q, k, v, out, lse); backward
+    :func:`_flash_bwd`.  ``window``, ``q_offset`` and ``kv_len`` get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block, softcap, window, q_offset,
+                kv_len):
+        out, lse = _flash_fwd(causal, block, softcap, q, k, v, window,
+                              q_offset, kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, block, window, q_offset, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, block, window, q_offset, kv_len = ctx.args
+        dq, dk, dv = _flash_bwd(causal, block, q, k, v, out, lse, dout,
+                                window, q_offset, kv_len)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_jnp(q, k, v, *, causal: bool, window=0, q_offset=0,
@@ -137,9 +219,8 @@ def flash_attention_jnp(q, k, v, *, causal: bool, window=0, q_offset=0,
         window = window.float()
     if torch.is_tensor(kv_len):
         kv_len = kv_len.float()
-    out, _ = _flash_fwd(causal, block, float(softcap), q, k, v, window,
+    return _Flash.apply(q, k, v, causal, block, float(softcap), window,
                         q_offset, Skv if kv_len is None else kv_len)
-    return out
 
 
 def flash_attention_banded(q, k, v, *, window: int, block: int = 1024,

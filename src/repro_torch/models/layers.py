@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -24,16 +25,58 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+_DOT_SCOPE = threading.local()
+
+
+def in_dot_without_batch_dims() -> bool:
+    """True while :func:`einsum` computes a product with no batch
+    dimension (what remat ``"block"`` keeps)."""
+    return getattr(_DOT_SCOPE, "active", False)
+
+
+@functools.lru_cache(maxsize=None)
+def _has_batch_dims(eq: str) -> bool:
+    ins, out = eq.split("->")
+    return bool(set.intersection(*(set(t) for t in ins.split(",")), out))
+
+
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with the operands promoted to one dtype first, as
     ``jnp.einsum`` promotes them (bf16 with f32 is f32)."""
     dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
-    return torch.einsum(eq, *(o.to(dt) for o in ops))
+    ops = [o.to(dt) for o in ops]
+    if _has_batch_dims(eq):
+        return torch.einsum(eq, *ops)
+    _DOT_SCOPE.active = True
+    try:
+        return torch.einsum(eq, *ops)
+    finally:
+        _DOT_SCOPE.active = False
+
+
+def _replace_inf(x):
+    return torch.where(x == torch.inf, 0.0, x)
+
+
+class _Softplus(torch.autograd.Function):
+    """``logaddexp(x, 0)`` with ``logaddexp``'s own derivative,
+    ``exp(x - out)`` (+inf read as 0), not autograd's of the formula."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(_replace_inf(x) - _replace_inf(out))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)``, written as jnp writes it."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    return _Softplus.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

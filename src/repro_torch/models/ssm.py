@@ -27,6 +27,30 @@ def _log_sigmoid(x):
     return -softplus(-x)
 
 
+def cummax(x, dim: int):
+    """``lax.cummax`` as JAX differentiates it: its parallel prefix scan of
+    pairwise ``maximum`` (``lax.associative_scan``), so a cotangent splits
+    at ties as the reference's does (``torch.cummax`` sends it to one
+    index).  The values are ``torch.cummax``'s."""
+    n = x.shape[dim]
+    if n < 2:
+        return x
+
+    def sl(t, start, stop=None, step=1):
+        return t[(slice(None),) * dim + (slice(start, stop, step),)]
+    odd = cummax(torch.maximum(sl(x, 0, -1, 2), sl(x, 1, None, 2)), dim)
+    if n % 2 == 0:
+        even = torch.maximum(sl(odd, 0, -1), sl(x, 2, None, 2))
+    else:
+        even = torch.maximum(odd, sl(x, 2, None, 2))
+    even = torch.cat([sl(x, 0, 1), even], dim=dim)
+    # ``even`` at the even positions, ``odd`` at the odd ones
+    if odd.shape[dim] < even.shape[dim]:
+        odd = torch.cat([odd, torch.zeros_like(sl(x, 0, 1))], dim=dim)
+    return torch.stack([even, odd], dim=dim + 1).flatten(dim, dim + 1)[
+        (slice(None),) * dim + (slice(0, n),)]
+
+
 def _chunks(x, nchunk: int, K: int):
     """(B, nchunk*K, ...) -> the ``nchunk`` chunks along axis 1."""
     return [x[:, c * K:(c + 1) * K] for c in range(nchunk)]
@@ -68,7 +92,7 @@ def _mlstm_chunk_step(qc, kc, vc, li, lf, state):
     scale = 1.0 / math.sqrt(dh)
     b = torch.cumsum(lf, dim=1)                      # (B,K,H) inclusive decay
     g = li - b                                       # log source weight
-    m_intra = torch.cummax(g, dim=1).values + b      # (B,K,H)
+    m_intra = cummax(g, dim=1) + b                   # (B,K,H)
     m_inter = state["m"][:, None] + b                # (B,K,H)
     m_t = torch.maximum(m_intra, m_inter)
 

@@ -15,18 +15,23 @@ global_every`` holds, which is the periodic branch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Leaf, apply_norm, const, dense,
-                                       dtype_of, embed, einsum, norm_layout,
-                                       stacked, swiglu, swiglu_layout)
+                                       dtype_of, embed, einsum,
+                                       in_dot_without_batch_dims,
+                                       norm_layout, stacked, swiglu,
+                                       swiglu_layout)
 
 
 # ======================================================================
@@ -115,12 +120,21 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def unstack(tree, n: int) -> List[Any]:
-    """A layer-stacked tree as ``n`` per-layer trees of views."""
+    """A layer-stacked tree as ``n`` per-layer trees of views.  Each leaf
+    is split by one ``unbind``, whose gradient stacks the layers' gradients
+    in one op (indexing it per layer would add ``n`` zero-padded copies of
+    the whole leaf)."""
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        return node.unbind(0)
+
     def take(node, i):
         if isinstance(node, dict):
             return {k: take(v, i) for k, v in node.items()}
         return node[i]
-    return [take(tree, i) for i in range(n)]
+    parts = split(tree)
+    return [take(parts, i) for i in range(n)]
 
 
 # ======================================================================
@@ -199,12 +213,43 @@ def _stack_states(states):
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
+    """Save the matmul of a :func:`layers.einsum` whose equation has no
+    batch dimension; recompute everything else."""
+    if op in _DOTS and in_dot_without_batch_dims():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """The reference's ``_maybe_remat``: ``"full"`` keeps only the body's
+    inputs and recomputes the rest in the backward pass; ``"block"`` also
+    keeps the products with no batch dimension
+    (``dots_with_no_batch_dims_saveable``)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if remat == "block":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_with_no_batch_dims_saveable))
+    raise ValueError(f"unknown remat {remat!r}")
+
+
 def forward_full(params, cfg: ModelConfig, batch: Dict[str, Any], *,
-                 collect_cache: bool = False, cache_len: int = 0):
-    """Full-sequence forward for prefill (and the loss).
+                 remat: str = "none", collect_cache: bool = False,
+                 cache_len: int = 0):
+    """Full-sequence forward for train and prefill.
 
     Returns (logits, aux_loss, cache_or_None). ``batch`` carries ``tokens``
     (B, S_text) plus optional ``enc_embeds`` / ``prefix_embeds``.
+    ``remat`` wraps each of the reference's scanned bodies (a layer, an
+    xLSTM pair, a period of gemma3's pattern) as ``_maybe_remat`` does.
     """
     tokens = batch["tokens"]
     x = params["embed"][tokens]
@@ -216,14 +261,17 @@ def forward_full(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
 
     if cfg.family == "ssm":
+        def pair_body(h, lp):
+            y, ms = ssm_mod.mlstm_block(lp["mlstm"], cfg,
+                                        apply_norm(cfg, lp["m_norm"], h))
+            h = h + y
+            y, ss = ssm_mod.slstm_block(lp["slstm"], cfg,
+                                        apply_norm(cfg, lp["s_norm"], h))
+            return h + y, ms, ss
+        body = _maybe_remat(pair_body, remat)
         ms_all, ss_all = [], []
         for lp in unstack(params["layers"], cfg.n_layers // 2):
-            y, ms = ssm_mod.mlstm_block(lp["mlstm"], cfg,
-                                        apply_norm(cfg, lp["m_norm"], x))
-            x = x + y
-            y, ss = ssm_mod.slstm_block(lp["slstm"], cfg,
-                                        apply_norm(cfg, lp["s_norm"], x))
-            x = x + y
+            x, ms, ss = body(x, lp)
             ms_all.append(ms)
             ss_all.append(ss)
         cache = ({"mlstm": _stack_states(ms_all),
@@ -232,27 +280,31 @@ def forward_full(params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
     layers = unstack(params["layers"], cfg.n_layers)
     if cfg.family == "encdec":
-        mem = _encode(params, cfg, batch["enc_embeds"])
-        kvs, mems = [], []
-        for lp in layers:
-            hn = apply_norm(cfg, lp["attn_norm"], x)
+        mem = _encode(params, cfg, batch["enc_embeds"], remat=remat)
+
+        def dec_body(h, aux, lp):
+            hn = apply_norm(cfg, lp["attn_norm"], h)
             if collect_cache:
                 a, kv = attn.self_attention_prefill(lp["attn"], cfg, hn,
                                                     positions)
-                kvs.append(kv)
             else:
                 a = attn.self_attention(lp["attn"], cfg, hn, positions,
                                         causal=True)
-            x = x + a
+                kv = None
+            h = h + a
             mk, mv = attn.encode_memory(lp["cross"], cfg, mem)
-            mems.append((mk, mv))
             c = attn.cross_attention(lp["cross"], cfg,
-                                     apply_norm(cfg, lp["cross_norm"], x),
+                                     apply_norm(cfg, lp["cross_norm"], h),
                                      mk, mv)
-            x = x + c
-            f, a2 = _ffn_apply(lp, cfg, apply_norm(cfg, lp["ffn_norm"], x))
-            x = x + f
-            aux_total = aux_total + a2
+            h = h + c
+            f, a2 = _ffn_apply(lp, cfg, apply_norm(cfg, lp["ffn_norm"], h))
+            return h + f, aux + a2, (kv, (mk, mv))
+        body = _maybe_remat(dec_body, remat)
+        kvs, mems = [], []
+        for lp in layers:
+            x, aux_total, (kv, mkv) = body(x, aux_total, lp)
+            kvs.append(kv)
+            mems.append(mkv)
         cache = None
         if collect_cache:
             k, v = _kv_cache(kvs, cache_len)
@@ -262,46 +314,80 @@ def forward_full(params, cfg: ModelConfig, batch: Dict[str, Any], *,
         return _unembed(params, cfg, x), aux_total, cache
 
     # decoder-only families (dense / moe / hybrid / vlm)
-    windows = [int(w) for w in layer_windows(cfg)]
-    kvs, hy = [], []
-    for lp, window in zip(layers, windows):
-        hn = apply_norm(cfg, lp["attn_norm"], x)
+    def layer_step(h, aux, lp, window):
+        hn = apply_norm(cfg, lp["attn_norm"], h)
         if cfg.family == "hybrid":
-            a_out, hy_cache = _hymba_mixer(lp, cfg, hn, positions, window)
-            kvs.append((hy_cache["k"], hy_cache["v"]))
-            hy.append(hy_cache)
+            a_out, kv = _hymba_mixer(lp, cfg, hn, positions, window)
+            kv = kv if collect_cache else None
         elif collect_cache:
             a_out, kv = attn.self_attention_prefill(lp["attn"], cfg, hn,
                                                     positions, window=window)
-            kvs.append(kv)
         else:
             a_out = attn.self_attention(lp["attn"], cfg, hn, positions,
                                         window=window)
-        x = x + a_out
-        f, a2 = _ffn_apply(lp, cfg, apply_norm(cfg, lp["ffn_norm"], x))
-        x = x + f
-        aux_total = aux_total + a2
+            kv = None
+        h = h + a_out
+        f, a2 = _ffn_apply(lp, cfg, apply_norm(cfg, lp["ffn_norm"], h))
+        return h + f, aux + a2, kv
+
+    windows = [int(w) for w in layer_windows(cfg)]
+    kvs = []
+    if (len(set(windows)) > 1 and cfg.global_every
+            and cfg.n_layers >= cfg.global_every):
+        # the reference's periodic branch: its scan body is one period of
+        # the pattern; the leftover layers run after it, outside remat
+        p = cfg.global_every
+        n_per = cfg.n_layers // p
+
+        def period_body(h, aux, *lps):
+            out = []
+            for j, lp in enumerate(lps):
+                h, aux, kv = layer_step(h, aux, lp, windows[j])
+                out.append(kv)
+            return h, aux, out
+        body = _maybe_remat(period_body, remat)
+        for i in range(n_per):
+            x, aux_total, kv = body(x, aux_total, *layers[i * p:(i + 1) * p])
+            kvs.extend(kv)
+        for i in range(n_per * p, cfg.n_layers):
+            x, aux_total, kv = layer_step(x, aux_total, layers[i],
+                                          windows[i])
+            kvs.append(kv)
+    else:
+        # uniform windows (static) or, where no config reaches, the
+        # reference's traced per-layer window: one body per layer
+        for lp, window in zip(layers, windows):
+            body = _maybe_remat(functools.partial(layer_step, window=window),
+                                remat)
+            x, aux_total, kv = body(x, aux_total, lp)
+            kvs.append(kv)
     cache = None
     if collect_cache:
-        k, v = _kv_cache(kvs, cache_len)
+        pairs = [(kv["k"], kv["v"]) if cfg.family == "hybrid" else kv
+                 for kv in kvs]
+        k, v = _kv_cache(pairs, cache_len)
         cache = {"k": k, "v": v}
         if cfg.family == "hybrid":
-            cache["ssm"] = torch.stack([c["ssm"] for c in hy])
-            cache["conv"] = torch.stack([c["conv"] for c in hy])
+            cache["ssm"] = torch.stack([c["ssm"] for c in kvs])
+            cache["conv"] = torch.stack([c["conv"] for c in kvs])
     return _unembed(params, cfg, x), aux_total, cache
 
 
-def _encode(params, cfg: ModelConfig, enc_embeds):
+def _encode(params, cfg: ModelConfig, enc_embeds, *, remat: str = "none"):
     """Bidirectional encoder over stub frame embeddings (B, Se, d)."""
     x = enc_embeds.to(dtype_of(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for lp in unstack(params["enc_layers"], cfg.n_enc_layers):
+
+    def enc_body(h, lp):
         a = attn.self_attention(lp["attn"], cfg,
-                                apply_norm(cfg, lp["attn_norm"], x),
+                                apply_norm(cfg, lp["attn_norm"], h),
                                 positions, causal=False)
-        x = x + a
-        f, _ = _ffn_apply(lp, cfg, apply_norm(cfg, lp["ffn_norm"], x))
-        x = x + f
+        h = h + a
+        f, _ = _ffn_apply(lp, cfg, apply_norm(cfg, lp["ffn_norm"], h))
+        return h + f
+    body = _maybe_remat(enc_body, remat)
+    for lp in unstack(params["enc_layers"], cfg.n_enc_layers):
+        x = body(x, lp)
     return apply_norm(cfg, params["enc_final_norm"], x)
 
 
@@ -398,7 +484,7 @@ def forward_decode(params, cfg: ModelConfig, token, cache, cur_pos: int):
 
 
 # ======================================================================
-# Loss (forward only)
+# Loss
 # ======================================================================
 def lm_loss(logits, labels, vocab_size: Optional[int] = None):
     """Mean token cross-entropy; labels < 0 are masked.  The gold logit is

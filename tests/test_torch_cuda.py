@@ -689,3 +689,56 @@ def test_serve_path_on_card_matches_reference_fixture(cuda, name):
     res = serve_fixtures.compare(serve_fixtures.load()["cases"][name],
                                  tokens, logits)
     assert res["ok"], res
+
+
+def _train_case_names():
+    from repro_torch.train import fixtures as train_fixtures
+    return [c.name for c in train_fixtures.train_cases()]
+
+
+@pytest.mark.parametrize("name", _train_case_names())
+def test_train_path_on_card_matches_reference_fixture(cuda, name):
+    """The model zoo's training path on the card (no kernel of its own):
+    the case's train steps in f32 from the numpy-drawn weights, each
+    step's metrics and the strided final parameters held to the
+    reference's ``reference_train.json`` (as ``chip_smoke.py`` phase 12)."""
+    from repro_torch.models import convert
+    from repro_torch.train import fixtures as train_fixtures
+
+    case = next(c for c in train_fixtures.train_cases() if c.name == name)
+    params = convert.from_reference(
+        case.cfg, convert.numpy_params(case.cfg, train_fixtures.SEED_PARAMS),
+        device=cuda)
+    res = train_fixtures.compare(train_fixtures.load()["cases"][name],
+                                 *train_fixtures.train_run(params, case,
+                                                           device=cuda))
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_on_card_matches_cpu(cuda, dtype):
+    """The flash Function's gradients on the card against the same
+    Function on CPU copies: windowed banded path (overlapping bands) and
+    the masked path with GQA, within 1e-5 (f32) or two bf16 ulps of each
+    gradient's scale."""
+    from repro_torch.models import attention as P_attn
+
+    g = torch.Generator().manual_seed(0)
+    for fn, shapes in (
+            (lambda q, k, v: P_attn.flash_attention_banded(
+                q, k, v, window=20, block=16),
+             ((1, 96, 4, 16), (1, 96, 1, 16), (1, 96, 1, 16))),
+            (lambda q, k, v: P_attn.flash_attention_jnp(
+                q, k, v, causal=True, window=9, block=8),
+             ((2, 33, 8, 16), (2, 33, 2, 16), (2, 33, 2, 16)))):
+        xs = [torch.randn(s, generator=g).to(dtype) for s in shapes]
+        w = torch.randn(shapes[0], generator=g).to(dtype)
+        grads = {}
+        for dev in ("cpu", cuda):
+            ins = [x.detach().to(dev).requires_grad_(True) for x in xs]
+            (fn(*ins) * w.to(dev)).float().sum().backward()
+            grads[str(dev)] = [x.grad.float().cpu() for x in ins]
+        for a, b in zip(grads["cpu"], grads[str(cuda)]):
+            scale = float(a.abs().max())
+            tol = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
+            assert float((a - b).abs().max()) <= tol * scale

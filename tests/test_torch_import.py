@@ -466,3 +466,74 @@ def test_serve_without_a_card_exits_nonzero():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert "[serve]" not in proc.stdout
+
+
+_BLOCKED_TRAIN = r"""
+import contextlib, importlib, io, json, pkgutil, sys, tempfile
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+import repro_torch
+mods = []
+for pkg in ("optim", "data", "ckpt", "ft", "train", "launch"):
+    p = importlib.import_module("repro_torch." + pkg)
+    for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
+        importlib.import_module(m.name)
+        mods.append(m.name)
+from repro_torch.launch import train
+from repro_torch.models import convert
+from repro_torch.train import fixtures
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = train.main(["--device", "cpu", "--arch", "xlstm-125m", "--steps",
+                     "4", "--batch", "2", "--seq-len", "8", "--save-every",
+                     "2", "--fail-at", "3", "--ckpt-dir", tempfile.mkdtemp()])
+case = next(c for c in fixtures.train_cases()
+            if c.name == "qwen1.5-0.5b@mb2-int8_ef")
+params = convert.from_reference(
+    case.cfg, convert.numpy_params(case.cfg, fixtures.SEED_PARAMS))
+res = fixtures.compare(fixtures.load()["cases"][case.name],
+                       *fixtures.train_run(params, case))
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"modules": mods, "rc": rc,
+                  "done": [ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("[train] done")],
+                  "fixture_ok": res["ok"], "loaded": loaded}))
+"""
+
+
+def test_training_path_runs_with_jax_repro_and_triton_blocked():
+    """Every module of ``repro_torch.{optim,data,ckpt,ft,train,launch}``
+    imports, the train driver recovers from an injected failure on the CPU
+    and a reduced case holds its training fixture, with none of the
+    reference's packages importable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_TRAIN], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
+            "repro_torch.ft.manager", "repro_torch.train.fixtures",
+            "repro_torch.launch.train"} <= set(out["modules"])
+    assert out["rc"] == 0 and out["fixture_ok"]
+    assert len(out["done"]) == 1 and "recoveries=1" in out["done"][0]
+
+
+def test_train_without_a_card_exits_nonzero(tmp_path):
+    """``python -m repro_torch.launch.train`` and the resume example run
+    on the card by default: with no card they fail and train nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='cuda' is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for argv in (["-m", "repro_torch.launch.train", "--arch", "qwen1.5-0.5b",
+                  "--ckpt-dir", str(tmp_path / "ck")],
+                 [str(ROOT / "examples" / "torch_train_resume.py")]):
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert "no CUDA device" in proc.stderr
+        assert "[train] step" not in proc.stdout
+    assert not list(tmp_path.iterdir())
