@@ -172,7 +172,27 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   40 steps, last loss below 0.7 of the first); one
                   full-width step profiled in process (device ms, kernels,
                   idle share);
-  13. result   -- the kernel table as one JSON line, the nvidia-smi line,
+  13. accelerator-mode DSE -- ``repro_torch.dse.TpuBackend`` on the card
+                  (no kernel: the reference's accelerator-mode analysis
+                  reaches no Pallas kernel): fig_tpu_dse's grid (4 reduced
+                  archs x 3 chips x 3 thresholds, 36 points) with each
+                  train step recorded as an ATen graph on the card, one
+                  analysis per workload and 4 x 3 selections, then zero
+                  analyses from a second engine on the same store; each
+                  workload's eqns, candidates, TPU-MACR, FLOPs and
+                  seconds; the backward seen by the recorder (more than 3x
+                  the forward's products); the grid's 36 records and
+                  Pareto front priced from the reference's analyses
+                  (``reference_tpu_dse.json``) == the reference's; gemma3-1b
+                  at its published widths (26 layers, bf16, B=4, S=1024)
+                  analysed on the card: eqns, candidates, bytes, TPU-MACR,
+                  FLOPs (== ``FlopCounterMode`` on the same step, beside
+                  phase 12's analytic count), the recorder's seconds beside
+                  a plain step's, peak memory; one ``"backend": "tpu"``
+                  request through ``DSEService``, records == the engine's;
+                  ``examples/torch_dse_cim.py --backend tpu`` as a process
+                  (exit 0); no launch of K1-K8 over the phase;
+  14. result   -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -874,7 +894,7 @@ def dse_phase(dev):
         per_artifact = {}
         accel.reset_launch_counts()
         t_all = time.perf_counter()
-        for name, mod in bench_run.ALL.items():
+        for name, mod in bench_run.CIM.items():
             c0, l0 = counters(eng.analysis), accel.launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
@@ -2041,6 +2061,247 @@ def train_phase(dev, smi):
                 phase_s=phase_s, failures=failures)
 
 
+def tpu_dse_phase(dev, smi):
+    """Phase 13: the accelerator-mode DSE backend on ``dev``.  (a)
+    fig_tpu_dse's grid with layer 1 recorded on the card, one analysis per
+    workload, a warm second engine on the same store; each workload's
+    analysis timed on its own first; the backward in the recorded graph.
+    (b) The grid priced from the reference's analyses, == the fixture.
+    (c) gemma3-1b at its published widths, bf16, B=4, S=1024: the
+    analysis, its FLOPs held to ``FlopCounterMode``, seconds and peak
+    memory.  (d) One ``"backend": "tpu"`` request through ``DSEService``.
+    (e) ``examples/torch_dse_cim.py --backend tpu`` as a process.  (f) No
+    K1-K8 launch.  Returns the summary for the detail file (``failures``
+    lists misses)."""
+    import shutil
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels as cim_kernels
+    from repro_torch.bench import fig_tpu_dse
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.core import accel
+    from repro_torch.core.hlo import record_graph
+    from repro_torch.core.hlo_cost import analyze_graph
+    from repro_torch.dse import (DSEEngine, SweepSpace, TPU_PRESETS,
+                                 TpuBackend, TpuOption)
+    from repro_torch.dse import fixtures as tpu_fixtures
+    from repro_torch.dse.backends import analyze_train_step, record_train_step
+    from repro_torch.dse.service import DSEService
+    from repro_torch.models import inputs as minputs
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    failures = []
+    accel.reset_launch_counts()
+    cim_kernels.reset_launch_counts()
+
+    def summary(an, secs):
+        saved = sum(c.saved_bytes for c in an.candidates)
+        return dict(eqns=an.n_eqns, candidates=len(an.candidates),
+                    total_bytes=an.total_bytes, saved_bytes=saved,
+                    tpu_macr=saved / an.total_bytes, flops=an.flops,
+                    hlo_bytes=an.hlo_bytes, seconds=secs)
+
+    # (a) each workload's layer 1 on the card, timed on its own
+    per_workload, solo = {}, {}
+    for w in fig_tpu_dse.WORKLOADS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        an = analyze_train_step(reduced_config(w), 2, 32, dev)
+        torch.cuda.synchronize()
+        solo[w] = an
+        per_workload[w] = summary(an, time.perf_counter() - t0)
+        print(f"  tpu analysis {w:14s} (reduced, B=2, S=32): "
+              f"{an.n_eqns} eqns, {len(an.candidates)} candidates, "
+              f"TPU-MACR {per_workload[w]['tpu_macr']:.4f}, "
+              f"{an.flops:.0f} FLOPs, {per_workload[w]['seconds']:.3f} s",
+              flush=True)
+    # the backward runs on autograd's device thread: the recorder must see
+    # it, so the step holds more than 3x the forward's products and FLOPs
+    cfg = reduced_config("qwen1.5-0.5b")
+    full_graph = record_train_step(cfg, 2, 32, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps_mod.init_train_state(gen, cfg, device=dev)
+    batch = minputs.make_train_batch(gen, cfg, 2, 32, device=dev)
+    with torch.no_grad():
+        fwd_graph, _ = record_graph(steps_mod.loss_fn, state["params"], cfg,
+                                    batch)
+    n_mm = [sum(e.prim == "dot_general" for e in g.eqns)
+            for g in (full_graph, fwd_graph)]
+    fl = [analyze_graph(g).flops for g in (full_graph, fwd_graph)]
+    backward = dict(step_products=n_mm[0], forward_products=n_mm[1],
+                    step_flops=fl[0], forward_flops=fl[1])
+    print(f"  recorded backward (qwen1.5-0.5b reduced): step {n_mm[0]} "
+          f"products / {fl[0]:.0f} FLOPs, forward {n_mm[1]} / "
+          f"{fl[1]:.0f}", flush=True)
+    if not (n_mm[0] > 3 * n_mm[1] > 0 and fl[0] > 3 * fl[1]):
+        failures.append(f"tpu: the recorded step misses its backward "
+                        f"{backward}")
+    del state, batch, full_graph, fwd_graph
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_tpu_store_")
+    try:
+        eng = DSEEngine(backend=TpuBackend(), store=store, device=dev)
+        t0 = time.perf_counter()
+        rows, results = fig_tpu_dse.run(engine=eng)
+        grid_s = time.perf_counter() - t0
+        st = results.stats
+        grid = dict(points=len(results), seconds=grid_s,
+                    analyses=st["trace_builds"],
+                    selections=st["offload_builds"],
+                    pareto=[(r["workload"], r["chip"], r["threshold"])
+                            for r in rows if r["pareto"]])
+        print(f"  fig_tpu_dse grid on the card: {len(results)} points in "
+              f"{grid_s:.3f} s, {st['trace_builds']} analyses, "
+              f"{st['offload_builds']} selections; front "
+              + json.dumps(grid["pareto"]), flush=True)
+        if (len(results), st["trace_builds"], st["offload_builds"]) != \
+                (36, 4, 12):
+            failures.append(f"tpu grid: {len(results)} points, "
+                            f"{st['trace_builds']} analyses, "
+                            f"{st['offload_builds']} selections")
+        for w in fig_tpu_dse.WORKLOADS:
+            got = eng.analysis._blobs[(1, "tpu", w, 2, 32)]
+            if got != solo[w]:
+                failures.append(f"tpu {w}: the grid's analysis differs "
+                                f"from the same step recorded alone")
+        warm = DSEEngine(backend=TpuBackend(), store=store, device=dev)
+        t0 = time.perf_counter()
+        again = warm.run(fig_tpu_dse.space())
+        grid["warm_seconds"] = time.perf_counter() - t0
+        grid["warm_analyses"] = again.stats["trace_builds"]
+        grid["warm_store_hits"] = again.stats.get("store_l1_hits", 0)
+        print(f"  warm engine on the same store: "
+              f"{again.stats['trace_builds']} analyses, "
+              f"{grid['warm_store_hits']} store hits, "
+              f"{grid['warm_seconds']:.3f} s", flush=True)
+        if again.stats["trace_builds"] != 0 or \
+                [r.to_dict() for r in again] != \
+                [r.to_dict() for r in results]:
+            failures.append(f"tpu warm store: {again.stats}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+    # (b) layers 2 and 3 on the reference's analyses
+    doc = tpu_fixtures.load()
+    recorded = DSEEngine(backend=tpu_fixtures.RecordedTpuBackend(),
+                         device=dev)
+    ref_grid = recorded.run(fig_tpu_dse.space())
+    e2e = recorded.run(tpu_fixtures.end_to_end_space())
+    same = dict(
+        records=[r.to_dict() for r in ref_grid] == doc["grid"]["records"],
+        pareto=[r.to_dict() for r in ref_grid.pareto(
+            fig_tpu_dse.OBJECTIVES)] == doc["grid"]["pareto"],
+        end_to_end=[r.to_dict() for r in e2e] == doc["end_to_end"])
+    print(f"  the reference's analyses through the port's selection and "
+          f"pricing: {len(ref_grid)} records, front of "
+          f"{len(doc['grid']['pareto'])}, {len(e2e)} end-to-end records; "
+          f"== the reference's: " + json.dumps(same), flush=True)
+    if not all(same.values()):
+        failures.append(f"tpu: records on the reference's analyses differ "
+                        f"{same}")
+
+    # (c) gemma3-1b at its published widths, the step phase 12 trains
+    full_cfg = get_config("gemma3-1b")
+    B, S = 4, 1024
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    an = analyze_train_step(full_cfg, B, S, dev)
+    torch.cuda.synchronize()
+    full = summary(an, time.perf_counter() - t0)
+    full["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev) \
+        - base_mem
+    with FlopCounterMode(display=False) as fc:
+        twice = analyze_train_step(full_cfg, B, S, dev)
+    full["flop_counter"] = fc.get_total_flops()
+    # a plain step on the same inputs, neither mode on: the recorder's cost
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps_mod.init_train_state(gen, full_cfg, device=dev)
+    with torch.no_grad():
+        for t in leaves(state):
+            t.zero_()
+    batch = minputs.make_train_batch(gen, full_cfg, B, S, device=dev)
+    step = steps_mod.make_train_step(full_cfg, TrainConfig())
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    full["plain_step_s"] = time.perf_counter() - t0
+    del state, batch
+    torch.cuda.empty_cache()
+    analytic = 6.0 * full_cfg.param_count() * B * S
+    full["analytic_6nd"] = analytic
+    print(f"  gemma3-1b full (26 layers, d 1152, vocab 262,144), bf16, "
+          f"B={B}, S={S}, remat block, recorded on the card: "
+          f"{an.n_eqns} eqns, {len(an.candidates)} candidates, "
+          f"total {an.total_bytes} bytes, saved {full['saved_bytes']}, "
+          f"TPU-MACR {full['tpu_macr']:.4f}, {an.flops / 1e12:.4f} TFLOP "
+          f"(FlopCounterMode {fc.get_total_flops() / 1e12:.4f}; 6ND "
+          f"{analytic / 1e12:.4f}, ratio {an.flops / analytic:.4f}), "
+          f"recorder {full['seconds']:.3f} s vs a plain step "
+          f"{full['plain_step_s']:.3f} s, peak memory "
+          f"{full['peak_memory_bytes'] / 2 ** 30:.3f} GiB", flush=True)
+    if an.flops != fc.get_total_flops() or not an.flops > 0:
+        failures.append(f"tpu gemma3-1b full: {an.flops} FLOPs, "
+                        f"FlopCounterMode {fc.get_total_flops()}")
+    if twice != an:
+        failures.append("tpu gemma3-1b full: two recordings differ")
+
+    # (d) the service: one "backend": "tpu" request in process
+    request = {"backend": "tpu", "workloads": ["xlstm-125m"],
+               "tpus": ["v5e", {"chip": "v4", "min_saved_bytes": "16K"},
+                        {"chip": "v5p", "min_saved_bytes": "1M",
+                         "vmem_scale": 0.5}]}
+    svc = DSEService(device=dev, tracing=False)
+    t0 = time.perf_counter()
+    events = list(svc.handle_query(request))
+    service_s = time.perf_counter() - t0
+    space = SweepSpace(workloads=("xlstm-125m",), tpus=tuple(
+        TpuOption(TPU_PRESETS[c], t, v)
+        for c, t, v in (("v5e", 1 << 16, 1.0), ("v4", 1 << 14, 1.0),
+                        ("v5p", 1 << 20, 0.5))))
+    want = [r.to_dict() for r in DSEEngine(backend=TpuBackend(),
+                                           device=dev).run(space)]
+    got = events[-1].get("records") if events else None
+    print(f"  DSEService \"backend\": \"tpu\" request: {len(got or [])} "
+          f"records in {service_s:.3f} s, == the engine's: {got == want}",
+          flush=True)
+    if got != want:
+        failures.append("tpu service: records differ from the engine's")
+
+    # (e) the example as a process of its own on the card
+    rc, out, err, example_s, _ = _run_entry_point(
+        [str(ROOT / "examples" / "torch_dse_cim.py"), "--backend", "tpu",
+         "--workload", "gemma3-1b"])
+    print(f"  examples/torch_dse_cim.py --backend tpu --workload gemma3-1b: "
+          f"exit {rc} in {example_s:.1f} s; "
+          + " / ".join(out.strip().splitlines()[:3]), flush=True)
+    if rc != 0:
+        failures.append(f"tpu example: exit {rc}: {err[-1500:]!r}")
+
+    # (f) the accelerator-mode analysis launches none of K1-K8
+    launches = {**accel.launch_counts(), **cim_kernels.launch_counts()}
+    print("  kernel launches in process over the phase (none expected): "
+          + json.dumps(launches), flush=True)
+    if any(launches.values()):
+        failures.append(f"tpu: kernels launched on the accelerator-mode "
+                        f"path: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"accelerator-mode DSE: {phase_s:.3f} s on "
+          f"{torch.cuda.get_device_name(0)} ({smi})", flush=True)
+    return dict(workloads=per_workload, backward=backward, grid=grid,
+                reference_analyses=same, full=full, service_s=service_s,
+                example=dict(rc=rc, seconds=example_s,
+                             lines=out.strip().splitlines()),
+                launches=launches, phase_s=phase_s, failures=failures)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -2590,7 +2851,17 @@ def main():
             print("MISMATCH", f)
         fail(f"{len(trained['failures'])} failures in the train phase")
 
-    # --------------------------------------------------------- 13. result
+    # ---------------------------------------------- 13. accelerator-mode DSE
+    tpu = tpu_dse_phase(dev, smi)
+    detail["tpu_dse"] = tpu
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if tpu["failures"]:
+        for f in tpu["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(tpu['failures'])} failures in the accelerator-mode "
+             f"DSE phase")
+
+    # --------------------------------------------------------- 14. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]

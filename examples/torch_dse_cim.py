@@ -1,7 +1,7 @@
 """Design-space exploration with `repro_torch.dse` (the paper's §VI-D/E
 questions), on the card.
 
-Twin of ``examples/dse_cim.py``, CiM half.  A sweep is a typed
+Twin of ``examples/dse_cim.py``.  A sweep is a typed
 cross-product over the paper's design axes (workload, cache geometry, CiM
 level set, device technology, host CPU); the engine memoizes the
 expensive trace/IDG analysis per (workload, cache) — one replay-kernel
@@ -34,8 +34,14 @@ host-CPU axis (presets of ``repro_torch.core.host_model.HOST_PRESETS``),
 the reference's for the same arguments; one more line names the device
 and the kernels' launches.
 
-``--backend tpu`` (the reference's TPU-mode pipeline) needs the GPU-mode
-backend, which the port does not have yet: it exits 2 with one line.
+``--backend tpu`` runs the accelerator-mode pipeline instead: ``--workload``
+is an arch id of ``repro_torch.configs.registry`` (default qwen1.5-0.5b),
+whose reduced train step is recorded once as an ATen graph on the device,
+and ``--chips`` / ``--thresholds`` span the chip presets and fusion
+thresholds it is priced under::
+
+    PYTHONPATH=src python examples/torch_dse_cim.py --backend tpu \\
+        --workload gemma3-1b --chips v5e,v4,v5p --thresholds 16K,64K,256K
 """
 import argparse
 import sys
@@ -44,7 +50,8 @@ from repro_torch import obs
 from repro_torch.core import accel
 from repro_torch.core.sampling import SamplingSpec
 from repro_torch.dse import (AdaptiveDSE, CimBackend, DSEEngine, HOST_PRESETS,
-                             StoreFormatError, SweepSpace)
+                             TPU_PRESETS, StoreFormatError, SweepSpace,
+                             TpuBackend, TpuOption, parse_bytes)
 from repro_torch.workloads import WORKLOADS
 
 
@@ -52,9 +59,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="cim", choices=["cim", "tpu"],
                     help="analysis pipeline: the paper's CiM trace/IDG "
-                         "path (tpu: not in the port yet, exits 2)")
+                         "path, or the accelerator-mode ATen-graph fusion "
+                         "path")
     ap.add_argument("--workload", default=None,
-                    help="a Table-IV program (default KM)")
+                    help="CiM: a Table-IV program (default KM); TPU: an "
+                         "arch id from repro_torch.configs.registry "
+                         "(default qwen1.5-0.5b)")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs: cuda (default) or cpu")
     ap.add_argument("--executor", default="thread",
@@ -66,9 +76,12 @@ def main(argv=None) -> int:
                     help="comma-separated host presets to sweep "
                          f"(known: {','.join(HOST_PRESETS)}; CiM backend)")
     ap.add_argument("--chips", default=None,
-                    help="TPU chip presets (TPU backend only)")
+                    help="comma-separated TPU chip presets "
+                         f"(known: {','.join(TPU_PRESETS)}; TPU backend "
+                         "only, default v5e,v4,v5p)")
     ap.add_argument("--thresholds", default=None,
-                    help="fusion min_saved_bytes values (TPU backend only)")
+                    help="comma-separated fusion min_saved_bytes values "
+                         "(TPU backend only, default 16K,64K,256K)")
     ap.add_argument("--report", default=None,
                     help="write the markdown sweep report here")
     ap.add_argument("--json", default=None,
@@ -84,28 +97,34 @@ def main(argv=None) -> int:
                     help="enable span tracing and print the per-stage "
                          "attribution table after the run")
     ap.add_argument("--sample", default=None, metavar="MODE[:k=v,...]",
-                    help="statistical sampling instead of exact analysis: "
-                         "'stratified' or 'phase', with optional knobs, "
-                         "e.g. phase:interval=2048,budget=32. Sampled "
-                         "records carry bootstrap CI columns, and "
-                         "--workload accepts loop-scaled 'name@scale' "
-                         "variants")
+                    help="statistical sampling instead of exact analysis "
+                         "(CiM backend): 'stratified' or 'phase', with "
+                         "optional knobs, e.g. "
+                         "phase:interval=2048,budget=32. Sampled records "
+                         "carry bootstrap CI columns, and --workload "
+                         "accepts loop-scaled 'name@scale' variants")
     args = ap.parse_args(argv)
 
-    if args.backend == "tpu":
-        # never priced as CiM: the TPU-mode pipeline is its own backend
-        print("error: --backend tpu needs the GPU-mode analysis backend "
-              "(the twin of repro.dse.TpuBackend), which repro_torch does "
-              "not have yet (ROADMAP Queue 1 item 5)", file=sys.stderr)
-        return 2
-    tpu_only = [flag for flag, val in (("--chips", args.chips),
-                                       ("--thresholds", args.thresholds))
-                if val is not None]
-    if tpu_only:
-        ap.error(f"{'/'.join(tpu_only)} select TPU chip presets and "
-                 f"fusion thresholds, TPU-backend axes; the CiM "
-                 f"pipeline sweeps caches/levels/techs instead. Drop "
-                 f"{'/'.join(tpu_only)} or use --backend tpu.")
+    # each backend owns some axes; mixing them is a mistake worth stopping
+    # at the door rather than silently ignoring the flag (exit code 2)
+    if args.backend == "tpu" and args.hosts is not None:
+        ap.error("--hosts sweeps host CPUs, a CiM-backend axis; the TPU "
+                 "pipeline has no host axis. Drop --hosts or use "
+                 "--backend cim.")
+    if args.backend == "tpu" and args.sample is not None:
+        ap.error("--sample draws windows from the CiM instruction trace; "
+                 "the TPU jaxpr/HLO pipeline has no trace to sample. Drop "
+                 "--sample or use --backend cim.")
+    if args.backend == "cim":
+        tpu_only = [flag for flag, val in (("--chips", args.chips),
+                                           ("--thresholds", args.thresholds))
+                    if val is not None]
+        if tpu_only:
+            ap.error(f"{'/'.join(tpu_only)} select TPU chip presets and "
+                     f"fusion thresholds, TPU-backend axes; the CiM "
+                     f"pipeline sweeps caches/levels/techs instead. Drop "
+                     f"{'/'.join(tpu_only)} or use --backend tpu.")
+
 
     args.tracing = bool(args.trace or args.trace_report)
     if args.tracing:
@@ -115,6 +134,9 @@ def main(argv=None) -> int:
         if "--executor" not in (argv if argv is not None else sys.argv[1:]):
             args.executor = "serial"
         obs.enable(obs.Tracer())
+
+    if args.backend == "tpu":
+        return _tpu_main(args)
 
     sampling = SamplingSpec()
     if args.sample:
@@ -275,6 +297,94 @@ def _print_store_bytes(st: dict) -> None:
     print(f"   store size: {mb(total)} on disk "
           f"(layer1 {mb(st.get('store_bytes_layer1', 0))} / "
           f"layer2 {mb(st.get('store_bytes_layer2', 0))}; {backends})")
+
+
+def _tpu_main(args) -> int:
+    """The accelerator-mode half of the CLI: same flags, same flow,
+    TpuBackend, on ``--device``."""
+    from repro_torch.configs.registry import ARCHS
+    workload = args.workload or "qwen1.5-0.5b"
+    if workload not in ARCHS:
+        print(f"unknown arch {workload!r}; known: {sorted(ARCHS)}")
+        return 1
+    chips = tuple((args.chips or "v5e,v4,v5p").split(","))
+    for c in chips:
+        if c not in TPU_PRESETS:
+            print(f"unknown TPU chip preset {c!r}; "
+                  f"known: {sorted(TPU_PRESETS)}")
+            return 1
+    raw_thresholds = args.thresholds or "16K,64K,256K"
+    try:
+        thresholds = tuple(parse_bytes(t) for t in raw_thresholds.split(","))
+    except ValueError:
+        print(f"bad --thresholds {raw_thresholds!r}; expected "
+              f"comma-separated byte counts like 16K,64K,1M")
+        return 1
+    tpus = [TpuOption(TPU_PRESETS[c], t) for c in chips for t in thresholds]
+    try:
+        engine = DSEEngine(executor=args.executor, store=args.cache_dir,
+                           backend=TpuBackend(), device=args.device)
+    except StoreFormatError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    space = SweepSpace(workloads=(workload,), tpus=tuple(tpus))
+    print(f"== {workload}: {len(space)} design points, "
+          f"1 ATen-graph analysis ==")
+    if args.adaptive:
+        adaptive = AdaptiveDSE(space, engine=engine).run()
+        for line in adaptive.summary().splitlines():
+            print(f"   {line}")
+        results = adaptive.results
+    else:
+        results = engine.run(space)
+    st = results.stats
+    print(f"   done in {results.elapsed_s:.1f}s "
+          f"(graph analyses {st.get('trace_builds')}, "
+          f"fusion selections {st.get('offload_builds')})")
+    print(f"device: {engine.device} (the train step's ATen graph is "
+          f"recorded there; no kernel of the port is launched)")
+    if args.cache_dir:
+        print(f"   store: {st.get('store_l1_hits', 0)} analysis hits / "
+              f"{st.get('store_writes', 0)} writes / "
+              f"{st.get('store_corrupt_drops', 0)} corrupt drops "
+              f"under {args.cache_dir}")
+        _print_store_bytes(st)
+
+    if not args.adaptive:
+        chip0, thr0 = results.records[0].cache, results.records[0].cim_set
+        print(f"== chip slice (threshold {thr0}) ==")
+        for r in results:
+            if r.cim_set == thr0:
+                print(f"  {r.cache:6s} E-impr {r.energy_improvement:5.2f}x "
+                      f"speedup {r.speedup:5.2f}x bound "
+                      f"{r.cim_runtime_ms:.4f}ms")
+        print(f"== fusion-threshold slice (chip {chip0}) ==")
+        for r in results:
+            if r.cache == chip0:
+                print(f"  {r.cim_set:8s} tpu_macr {r.macr:.3f} "
+                      f"E-impr {r.energy_improvement:5.2f}x "
+                      f"speedup {r.speedup:5.2f}x")
+
+    front = (adaptive.frontier if args.adaptive
+             else results.pareto(("energy_improvement", "speedup")))
+    print("== Pareto frontier (energy improvement vs speedup) ==")
+    for r in front:
+        print(f"  {r.workload}/{r.cache}/{r.cim_set:8s} "
+              f"E {r.energy_improvement:5.2f}x spd {r.speedup:5.2f}x")
+
+    if args.report:
+        text = (adaptive.to_markdown() if args.adaptive
+                else results.to_markdown(
+                    columns=("workload", "cache", "cim_set", "macr",
+                             "energy_improvement", "speedup")))
+        with open(args.report, "w") as f:
+            f.write(text)
+        print(f"[report] {args.report}")
+    if args.json:
+        results.to_json(args.json)
+        print(f"[json] {args.json}")
+    _finish_trace(args)
+    return 0
 
 
 if __name__ == "__main__":

@@ -69,6 +69,11 @@ def cached_trace(name: str,
     return engine().analysis.trace(name, option)
 
 
+def out_dir() -> pathlib.Path:
+    """The directory :func:`configure` set for the artifacts."""
+    return _OUT
+
+
 def emit(name: str, rows: List[dict]) -> pathlib.Path:
     _OUT.mkdir(parents=True, exist_ok=True)
     path = _OUT / f"{name}.csv"

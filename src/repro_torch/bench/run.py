@@ -11,15 +11,18 @@ Twin of ``benchmarks/run.py``::
     python -m repro_torch.bench service [...]        # the service bench
     python -m repro_torch.bench timing [...]         # per-stage throughput
 
-Each artifact's CSV and JSON are byte for byte what ``python -m
-benchmarks.run`` writes for the same name.  ``sampling`` is not an
+Each CiM artifact's CSV and JSON are byte for byte what ``python -m
+benchmarks.run`` writes for the same name.  The accelerator-mode artifacts
+``tpu_macr`` and ``fig_tpu_dse`` have the reference's columns and the
+port's values: their layer 1 records an ATen graph where the reference
+traces a jaxpr (ROADMAP Queue 3).  ``sampling`` is not an
 artifact: it runs :mod:`repro_torch.bench.sampling` (the twin of
 ``benchmarks/bench_sampling.py``) with the arguments that follow it, and
 ``service`` likewise runs :mod:`repro_torch.bench.service` (the twin of
 ``benchmarks/bench_service.py``), and ``timing``
 :mod:`repro_torch.bench.timing` (the twin of
-``benchmarks/analysis_timing.py``).  ``tpu_macr``, ``fig_tpu_dse`` and
-``roofline`` wait for their ROADMAP Queue 1 items.
+``benchmarks/analysis_timing.py``).  ``roofline`` waits for the sharded
+dry run (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ import time
 
 from repro_torch.bench import (common, fig12_macr_validation, fig13_macr,
                                fig14_cache_cfg, fig15_levels, fig16_tech,
-                               fig17_host, fig_adaptive, table3_energy,
-                               table5_validation, table6_speedup)
+                               fig17_host, fig_adaptive, fig_tpu_dse,
+                               table3_energy, table5_validation,
+                               table6_speedup, tpu_macr)
 
-ALL = {
+#: the CiM artifacts, each byte for byte the reference's
+CIM = {
     "table3": table3_energy,
     "table5": table5_validation,
     "fig12": fig12_macr_validation,
@@ -44,9 +49,11 @@ ALL = {
     "fig17": fig17_host,
     "fig_adaptive": fig_adaptive,
 }
-#: the artifacts whose design space the engine sweeps (their drivers
+#: every artifact, in the reference's order (``roofline`` aside)
+ALL = {**CIM, "tpu_macr": tpu_macr, "fig_tpu_dse": fig_tpu_dse}
+#: the CiM artifacts whose design space the engine sweeps (their drivers
 #: expose ``space()``)
-SWEEPS = tuple(name for name, mod in ALL.items() if hasattr(mod, "space"))
+SWEEPS = tuple(name for name, mod in CIM.items() if hasattr(mod, "space"))
 
 
 def stem(name: str) -> str:

@@ -67,7 +67,7 @@ def coarse_seed(space: SweepSpace) -> List[SweepPoint]:
 
     All workloads (frontiers are per-workload — every workload needs a
     starting point), the space's *first* cache geometry / tech / CiM-set /
-    host (adjacency walks reach the rest), and the space's
+    host / TPU option (adjacency walks reach the rest), and the space's
     minimal CiM level sets (every level set not strictly containing
     another — level moves only go up, so the seed must start at the bottom
     of the superset lattice)."""
@@ -80,7 +80,8 @@ def coarse_seed(space: SweepSpace) -> List[SweepPoint]:
             points.append(SweepPoint(
                 index=len(points), workload=w, cache=space.caches[0],
                 cim_levels=lv, tech=space.techs[0],
-                cim_set=space.cim_sets[0], host=space.hosts[0]))
+                cim_set=space.cim_sets[0], host=space.hosts[0],
+                tpu=space.tpus[0]))
     return points
 
 
@@ -188,14 +189,16 @@ class AdaptiveDSE:
             frozenset(space.techs),
             frozenset(space.cim_sets),
             frozenset(space.hosts),
+            frozenset(space.tpus),
         )
 
     # ------------------------------------------------------------ helpers
     def _in_space(self, p: SweepPoint) -> bool:
-        w, caches, levels, techs, sets_, hosts = self._axis_values
+        w, caches, levels, techs, sets_, hosts, tpus = self._axis_values
         return (p.workload in w and p.cache.levels in caches
                 and p.cim_levels in levels and p.tech in techs
-                and p.cim_set in sets_ and p.host in hosts)
+                and p.cim_set in sets_ and p.host in hosts
+                and p.tpu in tpus)
 
     def _dedup(self, candidates: Sequence[SweepPoint],
                seen: Set[Tuple]) -> List[SweepPoint]:

@@ -1,6 +1,6 @@
 """Pluggable analysis backends — the analyze → select → price split as an API.
 
-Twin of ``repro/dse/backends.py``, CiM half:
+Twin of ``repro/dse/backends.py``:
 
   :class:`AnalysisBackend`   — the protocol: ``analyze`` (layer 1, once per
   analysis key), ``select`` (layer 2, once per hardware/threshold config),
@@ -10,37 +10,57 @@ Twin of ``repro/dse/backends.py``, CiM half:
   IDG/flow tables via the :class:`~repro_torch.dse.engine.AnalysisCache`
   CiM layers, Algorithm-1 candidate selection, ``profile_system`` pricing;
   or, with a ``sampling`` spec, the sampled pipeline
-  (:mod:`repro_torch.core.sampling.pipeline`).
+  (:mod:`repro_torch.core.sampling.pipeline`);
 
-The TPU-mode backend (``TpuBackend``, ``arch_fingerprint``,
-``TpuSelection``, ``TpuWorkloadAnalysis``) waits for ROADMAP Queue 1 item
-5, which gives :class:`AnalysisBackend` its second implementation.
+  :class:`TpuBackend`        — the accelerator-mode adaptation: one graph
+  analysis per (workload, shape) — :func:`analyze_train_step` records the
+  arch registry's reduced train step as an ATen graph on the cache's
+  device and runs :func:`~repro_torch.core.hlo.fusion_candidates` and
+  :func:`~repro_torch.core.hlo_cost.analyze_graph` over it — then
+  per-:class:`~repro_torch.dse.space.TpuOption` fusion selection
+  (``min_saved_bytes`` threshold + VMEM fit) and roofline/energy pricing
+  on a :class:`~repro_torch.core.tpu_model.TpuChip`.  Selection and
+  pricing are the reference's line for line; the names are its wire
+  vocabulary (the engine's backend ``"tpu"``).
+
+Both run through the same engine, cache, store (layer-1 artifacts of
+both persist under the ``cimtorch`` namespace) and adaptive loop.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+import hashlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch import obs
 from repro_torch.core.host_model import HostModel
 from repro_torch.core.profiler import profile_system
 from repro_torch.core.sampling.spec import SAMPLING_VERSION, SamplingSpec
+from repro_torch.core.tpu_model import roofline_terms, step_energy_pj
 from repro_torch.core.trace import TRACE_VM_VERSION
 from repro_torch.dse.results import SweepRecord
-from repro_torch.dse.space import CacheOption, HostOption, SweepPoint
+from repro_torch.dse.space import (CacheOption, HostOption, SweepPoint,
+                                   TpuOption)
 from repro_torch.dse.store import NAMESPACE, workload_fingerprint
+
+# Version stamp of the accelerator-mode analysis/selection/pricing
+# semantics, mixed into every persisted TPU artifact key.  Bump it when the
+# recorder, fusion_candidates/analyze_graph, the selection rule or the
+# artifact schema changes: old TPU artifacts become unreachable while every
+# other backend's stay warm.
+TPU_ANALYSIS_VERSION = 1
 
 
 class AnalysisBackend(abc.ABC):
     """One pipeline behind the engine: analyze → select → price.
 
     ==========  ==============================  ===========================
-    phase       memoized by                     CiM incarnation
+    phase       memoized by                     CiM / TPU incarnation
     ==========  ==============================  ===========================
-    analyze     layer 1 (workload + geometry)   replayed trace + IDG/flow
-    select      layer 2 (+ per-config knobs)    Algorithm 1 + reshape
-    price       never (cheap, fanned out)       profile_system
+    analyze     layer 1 (workload + geometry)   trace+IDG / ATen graph
+    select      layer 2 (+ per-config knobs)    Algorithm 1 / fusion thr
+    price       never (cheap, fanned out)       profile_system / roofline
     ==========  ==============================  ===========================
 
     Backends are small frozen dataclasses: picklable (they ride to
@@ -94,6 +114,13 @@ class AnalysisBackend(abc.ABC):
             self.analyze(cache, p)
 
 
+def _refuse_tpu_point(point: SweepPoint) -> None:
+    """A point of the ``tpus`` axis is never priced as CiM."""
+    if point.tpu is not None:
+        raise ValueError(f"{point.label} is an accelerator-mode point; "
+                         f"price it with TpuBackend, not CimBackend")
+
+
 @dataclasses.dataclass(frozen=True)
 class CimBackend(AnalysisBackend):
     """Eva-CiM's trace → Algorithm-1 selection → McPAT/DESTINY pricing.
@@ -128,6 +155,7 @@ class CimBackend(AnalysisBackend):
         return None if self.sampling.is_exact else self.sampling.key()
 
     def analyze(self, cache, point: SweepPoint):
+        _refuse_tpu_point(point)
         if self.sampling.is_exact:
             return cache.trace(point.workload, point.cache)
         return self._sampled_analysis(cache, point, self.sampling)
@@ -144,6 +172,8 @@ class CimBackend(AnalysisBackend):
         if not self.sampling.is_exact:
             super().warm_many(cache, points)
             return
+        for p in points:
+            _refuse_tpu_point(p)
         by_wl: Dict[str, List[CacheOption]] = {}
         for p in points:
             by_wl.setdefault(p.workload, []).append(p.cache)
@@ -250,3 +280,237 @@ class CimBackend(AnalysisBackend):
             refined = dataclasses.replace(self, sampling=spec)
             rec = AnalysisBackend.evaluate(refined, cache, point, host)
         return rec
+
+
+# ======================================================================
+# TPU — ATen-graph fusion analysis, threshold selection, roofline pricing
+# ======================================================================
+@dataclasses.dataclass(frozen=True)
+class TpuCandidate:
+    """One VMEM-fusable chain, reduced to the numbers selection/pricing
+    need (the graph itself is not persisted)."""
+    n_ops: int
+    input_bytes: int
+    output_bytes: int
+    saved_bytes: int
+
+    @property
+    def workset_bytes(self) -> int:
+        """Resident footprint of the fused kernel: live inputs + outputs +
+        the intermediates it keeps in VMEM (saved_bytes counts each
+        intermediate's eliminated store+load, i.e. twice its size)."""
+        return self.input_bytes + self.output_bytes + self.saved_bytes // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuWorkloadAnalysis:
+    """Layer-1 TPU artifact: everything per-(workload, shape) and
+    config-independent — picklable, so it persists like a CiM trace."""
+    workload: str
+    batch: int
+    seq_len: int
+    flops: float                   # matrix-product FLOPs of the graph
+    total_bytes: int               # graph tensor traffic if nothing fuses
+    collective_bytes: float        # per-device collective bytes (0 off-mesh)
+    hlo_bytes: float               # non-view op footprint (reporting)
+    n_eqns: int
+    candidates: Tuple[TpuCandidate, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuSelection:
+    """Layer-2 TPU artifact: which candidates a TpuOption realizes."""
+    n_accepted: int
+    accepted_ops: int
+    saved_bytes: int
+    min_saved_bytes: int
+    vmem_bytes: float
+
+
+def record_train_step(cfg, batch: int, seq_len: int, device):
+    """Record ``make_train_step(cfg, TrainConfig())`` on an all-zeros train
+    state and a ``batch`` x ``seq_len`` batch as an ATen graph
+    (:class:`~repro_torch.core.hlo.Graph`), run eagerly on ``device`` with
+    real tensors (``"cuda"`` raises without a card).  The state and the
+    step's outputs are freed when it returns."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.columnar import resolve_device
+    from repro_torch.core.hlo import record_graph
+    from repro_torch.models import inputs as minputs
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import steps as steps_mod
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps_mod.init_train_state(gen, cfg, device=dev)
+    with torch.no_grad():
+        for t in leaves(state):
+            t.zero_()
+    data = minputs.make_train_batch(gen, cfg, batch=batch, seq_len=seq_len,
+                                    device=dev)
+    step = steps_mod.make_train_step(cfg, TrainConfig())
+    graph, _ = record_graph(step, state, data)
+    return graph
+
+
+def analyze_train_step(cfg, batch: int, seq_len: int,
+                       device) -> TpuWorkloadAnalysis:
+    """Layer 1 of the accelerator-mode backend for one model config: the
+    graph of :func:`record_train_step`, reduced to the numbers selection
+    and pricing need."""
+    from repro_torch.core.hlo import fusion_candidates
+    from repro_torch.core.hlo_cost import analyze_graph
+
+    graph = record_train_step(cfg, batch, seq_len, device)
+    rep = fusion_candidates(graph)
+    cost = analyze_graph(graph)
+    return TpuWorkloadAnalysis(
+        workload=cfg.arch_id, batch=batch, seq_len=seq_len,
+        flops=cost.flops, total_bytes=rep.total_bytes,
+        collective_bytes=cost.collective_total, hlo_bytes=cost.bytes,
+        n_eqns=len(graph.eqns),
+        candidates=tuple(
+            TpuCandidate(c.n_ops, c.input_bytes, c.output_bytes,
+                         c.saved_bytes) for c in rep.candidates))
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuBackend(AnalysisBackend):
+    """Accelerator-mode Eva-CiM: "does this model step benefit from
+    VMEM-resident fusion, on which chip, at which aggressiveness".
+
+    Workload names are arch ids from
+    :data:`repro_torch.configs.registry.ARCHS`; ``analyze`` records the
+    arch's *reduced* train step once per (workload, batch, seq_len) on the
+    cache's device (:func:`analyze_train_step`).  ``select`` realizes the
+    candidates that clear the point's
+    :class:`~repro_torch.dse.space.TpuOption` ``min_saved_bytes`` threshold
+    *and* fit its (possibly scaled) VMEM.  ``price`` compares the unfused
+    and fused steps under the option's chip: roofline bound time
+    (:func:`~repro_torch.core.tpu_model.roofline_terms`) and step energy
+    (:func:`~repro_torch.core.tpu_model.step_energy_pj`, with the
+    eliminated HBM traffic re-priced as VMEM traffic rather than dropped).
+
+    ``default_tpu`` prices points with no ``tpu`` axis value, mirroring
+    the engine-default host of the CiM path.
+    """
+
+    batch: int = 2
+    seq_len: int = 32
+    default_tpu: TpuOption = TpuOption.of("v5e")
+
+    name = "tpu"
+
+    @property
+    def version(self) -> int:
+        return TPU_ANALYSIS_VERSION
+
+    # ------------------------------------------------------------ layer 1
+    def _layer1_spec(self, workload: str) -> Dict:
+        return {"backend": f"{NAMESPACE}.{self.name}",
+                "version": self.version, "workload": workload,
+                "fingerprint": arch_fingerprint(workload),
+                "shape": [self.batch, self.seq_len]}
+
+    def analyze(self, cache, point: SweepPoint) -> TpuWorkloadAnalysis:
+        key = ("tpu", point.workload, self.batch, self.seq_len)
+        return cache.artifact(
+            1, key, lambda: self._analyze(point.workload, cache.device),
+            store_spec=self._layer1_spec(point.workload))
+
+    def _analyze(self, workload: str, device) -> TpuWorkloadAnalysis:
+        from repro_torch.configs.registry import reduced_config
+        return analyze_train_step(reduced_config(workload), self.batch,
+                                  self.seq_len, device)
+
+    # ------------------------------------------------------------ layer 2
+    def _option(self, point: SweepPoint) -> TpuOption:
+        return point.tpu if point.tpu is not None else self.default_tpu
+
+    def select(self, cache, point: SweepPoint,
+               analysis: TpuWorkloadAnalysis) -> TpuSelection:
+        opt = self._option(point)
+        vmem = opt.effective_chip().vmem_bytes
+        key = ("tpu", analysis.workload, analysis.batch, analysis.seq_len,
+               opt.min_saved_bytes, vmem)
+        return cache.artifact(
+            2, key, lambda: self._select(analysis, opt.min_saved_bytes, vmem))
+
+    @staticmethod
+    def _select(analysis: TpuWorkloadAnalysis, min_saved_bytes: int,
+                vmem_bytes: float) -> TpuSelection:
+        accepted = [c for c in analysis.candidates
+                    if c.saved_bytes >= min_saved_bytes
+                    and c.workset_bytes <= vmem_bytes]
+        return TpuSelection(
+            n_accepted=len(accepted),
+            accepted_ops=sum(c.n_ops for c in accepted),
+            saved_bytes=sum(c.saved_bytes for c in accepted),
+            min_saved_bytes=min_saved_bytes, vmem_bytes=vmem_bytes)
+
+    # ------------------------------------------------------------ pricing
+    def price(self, point: SweepPoint, analysis: TpuWorkloadAnalysis,
+              selection: TpuSelection, host: HostModel) -> SweepRecord:
+        opt = self._option(point)
+        chip = opt.effective_chip()
+        base_bytes = float(analysis.total_bytes)
+        fused_bytes = base_bytes - selection.saved_bytes
+        coll = analysis.collective_bytes
+        base = roofline_terms(analysis.flops, base_bytes, coll, 1, chip=chip)
+        fused = roofline_terms(analysis.flops, fused_bytes, coll, 1,
+                               chip=chip)
+        base_e = step_energy_pj(analysis.flops, base_bytes, coll, 1,
+                                chip=chip)
+        fused_e = step_energy_pj(analysis.flops, fused_bytes, coll, 1,
+                                 chip=chip)
+        # eliminated HBM round-trips still move through VMEM — re-priced,
+        # not free (the Eva-CiM analogue: CiM ops still cost array energy)
+        fused_total = (fused_e["total_pj"]
+                       + selection.saved_bytes * chip.pj_per_vmem_byte)
+        macr = (selection.saved_bytes / base_bytes) if base_bytes else 0.0
+        # "cycles" columns hold the roofline bound in ns (1 GHz convention),
+        # so runtime_ms = cycles / 1e9 * 1e3 matches the CiM records' shape
+        return SweepRecord(
+            index=point.index, workload=point.workload,
+            cache=opt.chip_label, cim_levels="VMEM", tech="tpu",
+            cim_set=opt.threshold_label, host="-",
+            energy_improvement=(base_e["total_pj"] / fused_total
+                                if fused_total else 1.0),
+            speedup=base.bound_s / fused.bound_s if fused.bound_s else 1.0,
+            macr=macr, macr_l1=macr,
+            base_energy_pj=base_e["total_pj"], cim_energy_pj=fused_total,
+            base_cycles=base.bound_s * 1e9, cim_cycles=fused.bound_s * 1e9,
+            base_runtime_ms=base.bound_s * 1e3,
+            cim_runtime_ms=fused.bound_s * 1e3,
+            processor_ratio=(base_e["compute_pj"] / base_e["total_pj"]
+                             if base_e["total_pj"] else 0.0),
+            cache_ratio=(base_e["hbm_pj"] / base_e["total_pj"]
+                         if base_e["total_pj"] else 0.0),
+            n_instructions=analysis.n_eqns,
+            n_mem_accesses=int(analysis.total_bytes),
+            n_candidates=len(analysis.candidates),
+            n_cim_ops=selection.accepted_ops,
+            backend=self.name)
+
+
+_ARCH_FINGERPRINTS: Dict[str, str] = {}
+
+
+def arch_fingerprint(workload: str) -> str:
+    """Content hash of a TPU workload: the arch id + its *reduced config*
+    (every field that shapes the traced step).  Editing a config — layer
+    count, widths, MoE/SSM structure — invalidates the persisted analysis;
+    unknown archs degrade to a name-only fingerprint."""
+    cached = _ARCH_FINGERPRINTS.get(workload)
+    if cached is not None:
+        return cached
+    spec = ""
+    try:
+        from repro_torch.configs.registry import reduced_config
+        spec = repr(reduced_config(workload))
+    except Exception:  # noqa: BLE001 — unknown arch / unimportable configs
+        spec = ""
+    digest = hashlib.sha256(f"{workload}\n{spec}".encode()).hexdigest()[:16]
+    _ARCH_FINGERPRINTS[workload] = digest
+    return digest

@@ -65,7 +65,11 @@ class SweepRecord:
     # provenance: which refinement round priced this point (0 = the coarse
     # seed sweep; one-shot sweeps leave it 0)
     round: int = 0
-    # which analysis backend priced it: the port has only the CiM one
+    # which analysis backend priced it ("cim" trace/IDG pipeline or "tpu"
+    # ATen-graph fusion pipeline — see repro_torch.dse.backends); for TPU
+    # records `cache` holds the chip label, `cim_levels` is "VMEM",
+    # `cim_set` the fusion threshold, and the cycle columns the roofline
+    # bound in ns
     backend: str = "cim"
     # sampling identity: "exact", or the SamplingSpec.key() the metrics
     # were estimated under; sampled records carry bootstrap CI half-widths

@@ -40,8 +40,9 @@ Endpoints:
   ``GET  /healthz``      liveness + uptime
   ``GET  /v1/trace/<id>`` the span tree of a recent request
 
-The backends are the CiM pipeline alone: the reference's TPU-mode backend
-waits for its port, and a ``"backend": "tpu"`` request is a 400.
+The backends are the reference's two: the CiM pipeline (``"cim"``) and
+the accelerator-mode one (``"tpu"``, whose graph analyses also run on the
+service's device).
 
 Run it (``--device cuda`` is the default; it raises without a card)::
 
@@ -65,7 +66,7 @@ from repro_torch.core import accel
 from repro_torch.core.columnar import resolve_device
 from repro_torch.core.host_model import DEFAULT_HOST, HostModel
 from repro_torch.dse.adaptive import AdaptiveDSE
-from repro_torch.dse.backends import AnalysisBackend, CimBackend
+from repro_torch.dse.backends import AnalysisBackend, CimBackend, TpuBackend
 from repro_torch.dse.engine import AnalysisCache, DSEEngine
 from repro_torch.dse.results import SweepRecord, SweepResults
 from repro_torch.dse.service.codec import (RequestError, parse_request,
@@ -132,7 +133,8 @@ class DSEService:
         self._singleflight = SingleFlight()
         self._memo_lock = threading.Lock()
         self._memo: Dict[Tuple, SweepRecord] = {}  # lint: guarded-by(_memo_lock)
-        self._backends: Dict[str, AnalysisBackend] = {"cim": CimBackend()}
+        self._backends: Dict[str, AnalysisBackend] = {"cim": CimBackend(),
+                                                      "tpu": TpuBackend()}
         self._caches: Dict[str, AnalysisCache] = {
             name: AnalysisCache(store=self.store, device=self.device)
             for name in self._backends}

@@ -1,10 +1,9 @@
 """Typed sweep specification: the cross-product of the paper's design axes.
 
 Twin of ``repro/dse/space.py``: the same axes, presets, enumeration order,
-labels and keys, for CiM points.  The reference's TPU-mode axis
-(``tpus``, ``TpuOption``, ``tpu_neighbors``, ``parse_bytes``) comes back with the backend
-that prices it, ROADMAP Queue 1 item 5; a point's ``key`` is the
-reference's without its trailing ``tpu`` (always ``None`` for a CiM point).
+labels and keys, the accelerator-mode ``tpus`` axis included.  A CiM
+point's ``key`` is the reference's without its trailing ``tpu`` (``None``
+on every CiM point); an accelerator-mode point's is the reference's.
 
 Eva-CiM's design space (§VI-D/E, Figs. 14–16) spans five orthogonal axes:
 
@@ -36,6 +35,7 @@ from repro_torch.core.device_model import TECHS
 from repro_torch.core.host_model import HOST_PRESETS, HostModel
 from repro_torch.core.isa import CIM_SET_FULL, CIM_SET_LOGIC, CIM_SET_STT
 from repro_torch.core.offload import OffloadConfig
+from repro_torch.core.tpu_model import TPU_PRESETS, TpuChip
 
 # Named presets for the paper's swept values ---------------------------------
 CACHE_PRESETS: Dict[str, Tuple[CacheConfig, ...]] = {
@@ -105,6 +105,81 @@ class HostOption:
         return cls(spec, HOST_PRESETS[spec])
 
 
+def _fmt_bytes(n: int) -> str:
+    """Compact power-of-two-ish byte label: 65536 -> '64K', 2**20 -> '1M'."""
+    if n >= 1 << 20 and n % (1 << 20) == 0:
+        return f"{n >> 20}M"
+    if n >= 1 << 10 and n % (1 << 10) == 0:
+        return f"{n >> 10}K"
+    return str(n)
+
+
+def parse_bytes(spec: Union[str, int]) -> int:
+    """Inverse of the label format: '64K' -> 65536, '1M' -> 2**20, 4096 -> 4096."""
+    if isinstance(spec, int):
+        return spec
+    s = spec.strip().upper()
+    for suffix, shift in (("M", 20), ("K", 10)):
+        if s.endswith(suffix):
+            return int(s[:-1]) << shift
+    return int(s)
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuOption:
+    """One TPU-mode hardware/fusion configuration (the backend-specific axis).
+
+    The TPU analogue of the (cache geometry, cim_levels, tech) bundle: which
+    chip the step is priced on, how aggressive VMEM fusion is (a candidate
+    chain is only realized when it eliminates at least ``min_saved_bytes`` of
+    HBM traffic), and optional what-if scaling of the two memory-system
+    resources (``vmem_scale`` gates which candidates *fit*, a selection-phase
+    input; ``hbm_bw_scale`` moves the roofline, a pricing-phase input).
+    Frozen + hashable so TPU-carrying :class:`SweepPoint` dedup works.
+    """
+    chip: TpuChip
+    min_saved_bytes: int = 1 << 16
+    vmem_scale: float = 1.0
+    hbm_bw_scale: float = 1.0
+
+    @property
+    def chip_label(self) -> str:
+        base = next((k for k, v in TPU_PRESETS.items() if v == self.chip),
+                    self.chip.name)
+        if self.vmem_scale != 1.0:
+            base += f"*vmem{self.vmem_scale:g}"
+        if self.hbm_bw_scale != 1.0:
+            base += f"*bw{self.hbm_bw_scale:g}"
+        return base
+
+    @property
+    def threshold_label(self) -> str:
+        return f"thr{_fmt_bytes(self.min_saved_bytes)}"
+
+    @property
+    def name(self) -> str:
+        return f"{self.chip_label}/{self.threshold_label}"
+
+    def effective_chip(self) -> TpuChip:
+        """The chip with the what-if scalings applied (pricing input)."""
+        if self.vmem_scale == 1.0 and self.hbm_bw_scale == 1.0:
+            return self.chip
+        return dataclasses.replace(
+            self.chip, vmem_bytes=self.chip.vmem_bytes * self.vmem_scale,
+            hbm_bw=self.chip.hbm_bw * self.hbm_bw_scale)
+
+    @classmethod
+    def of(cls, spec: Union[str, "TpuOption", TpuChip]) -> "TpuOption":
+        if isinstance(spec, TpuOption):
+            return spec
+        if isinstance(spec, TpuChip):
+            return cls(chip=spec)
+        if spec not in TPU_PRESETS:
+            raise KeyError(f"unknown TPU chip preset {spec!r}; "
+                           f"known: {sorted(TPU_PRESETS)}")
+        return cls(chip=TPU_PRESETS[spec])
+
+
 @dataclasses.dataclass(frozen=True)
 class SweepPoint:
     """One fully-specified design point of the sweep."""
@@ -115,6 +190,7 @@ class SweepPoint:
     tech: str
     cim_set: str = "stt"
     host: Optional[HostOption] = None    # None: the engine's default host
+    tpu: Optional[TpuOption] = None      # None: CiM point (the default)
 
     @property
     def analysis_key(self) -> Tuple:
@@ -122,7 +198,11 @@ class SweepPoint:
 
         Keyed by the full cache geometry (not the display name): two
         options with equal sizes but different associativity/banking must
-        not share a memoized trace."""
+        not share a memoized trace.  Accelerator-mode points share one
+        graph analysis per workload regardless of the (unused) CiM cache
+        axis."""
+        if self.tpu is not None:
+            return (self.workload, "tpu")
         return (self.workload, self.cache.levels)
 
     @property
@@ -134,14 +214,18 @@ class SweepPoint:
         differently-labeled options with equal geometry price alike).
         This is the dedup key of adaptive refinement: a point is priced at
         most once per :class:`~repro_torch.dse.adaptive.AdaptiveDSE` run
-        however many neighborhoods propose it."""
-        return (self.workload, self.cache.levels, self.cim_levels,
-                self.tech, self.cim_set,
-                None if self.host is None else (self.host.name,
-                                                self.host.model))
+        however many neighborhoods propose it.  A CiM point's key ends
+        before the reference's trailing ``tpu`` (``None`` there)."""
+        key = (self.workload, self.cache.levels, self.cim_levels,
+               self.tech, self.cim_set,
+               None if self.host is None else (self.host.name,
+                                               self.host.model))
+        return key if self.tpu is None else key + (self.tpu,)
 
     @property
     def label(self) -> str:
+        if self.tpu is not None:
+            return f"{self.workload}/{self.tpu.name}"
         lv = "+".join(self.cim_levels)
         base = (f"{self.workload}/{self.cache.name}/cim@{lv}"
                 f"/{self.tech}/{self.cim_set}")
@@ -174,6 +258,10 @@ class SweepSpace:
     techs: Tuple[str, ...] = ("sram",)
     cim_sets: Tuple[str, ...] = ("stt",)
     hosts: Tuple[Union[str, HostOption, HostModel, None], ...] = (None,)
+    # backend-specific axis: accelerator-mode chip/threshold options (None
+    # = CiM point priced by the engine's backend default).  CiM sweeps
+    # leave it at (None,) and enumerate identically to the five-axis form.
+    tpus: Tuple[Union[str, TpuOption, TpuChip, None], ...] = (None,)
 
     def __post_init__(self):
         for t in self.techs:
@@ -193,6 +281,9 @@ class SweepSpace:
         object.__setattr__(self, "hosts",
                            tuple(None if h is None else HostOption.of(h)
                                  for h in self.hosts))
+        object.__setattr__(self, "tpus",
+                           tuple(None if t is None else TpuOption.of(t)
+                                 for t in self.tpus))
 
     # ------------------------------------------------------------ helpers
     def _level_tuples(self) -> List[Tuple[str, ...]]:
@@ -210,21 +301,22 @@ class SweepSpace:
     def __len__(self) -> int:
         return (len(self.workloads) * len(self.caches)
                 * len(self.cim_levels) * len(self.techs)
-                * len(self.cim_sets) * len(self.hosts))
+                * len(self.cim_sets) * len(self.hosts) * len(self.tpus))
 
     def points(self) -> List[SweepPoint]:
         """Deterministic enumeration, workload-major then cache — all points
-        sharing one trace analysis are contiguous.  The host axis iterates
-        innermost: it is pricing-only, so variants of one design point stay
-        adjacent and reuse every cached artifact."""
+        sharing one trace analysis are contiguous.  The host and TPU axes
+        iterate innermost: host is pricing-only and every TPU option of one
+        workload shares one graph analysis, so variants of one design point
+        stay adjacent and reuse every cached artifact."""
         levels = self._level_tuples()
         out: List[SweepPoint] = []
-        for w, cache, lv, tech, cs, host in itertools.product(
+        for w, cache, lv, tech, cs, host, tpu in itertools.product(
                 self.workloads, self.caches, levels, self.techs,
-                self.cim_sets, self.hosts):
+                self.cim_sets, self.hosts, self.tpus):
             out.append(SweepPoint(index=len(out), workload=w, cache=cache,
                                   cim_levels=lv, tech=tech, cim_set=cs,
-                                  host=host))
+                                  host=host, tpu=tpu))
         return out
 
     def __iter__(self) -> Iterator[SweepPoint]:
@@ -260,7 +352,12 @@ def neighborhood(point: SweepPoint, space: SweepSpace) -> List[SweepPoint]:
         contains* the point's (supersets only: adding CiM arrays to more
         levels explores monotone extensions of a good placement);
       * **tech / cim_set / host** — the values adjacent in the space's
-        declared ordering.
+        declared ordering;
+      * **tpu** — backend-aware sub-axis moves: the TPU options in the
+        space that keep every other :class:`TpuOption` field and step to
+        the *adjacent* chip preset or the adjacent fusion threshold (in
+        the order the distinct values are declared) — one knob at a time,
+        exactly like the CiM axes.
 
     Each move changes exactly one axis, so a refinement round prices a
     cross-shaped neighborhood around every frontier point rather than a
@@ -298,4 +395,37 @@ def neighborhood(point: SweepPoint, space: SweepSpace) -> List[SweepPoint]:
     hi = next((i for i, h in enumerate(hosts) if h == point.host), -1)
     for h in _adjacent(hosts, hi):
         emit(host=h)
+
+    for t in tpu_neighbors(point.tpu, space.tpus):
+        emit(tpu=t)
     return moves
+
+
+def tpu_neighbors(current: Optional[TpuOption],
+                  declared: Sequence[Optional[TpuOption]]
+                  ) -> List[TpuOption]:
+    """Single-knob TPU moves: options in ``declared`` reached from
+    ``current`` by stepping exactly one sub-axis — the adjacent chip preset
+    or the adjacent ``min_saved_bytes`` threshold (each sub-axis ordered by
+    first appearance in the declared options, mirroring the other axes'
+    declared-order adjacency).  Only declared options are ever returned, so
+    a sparse (non-grid) TPU axis stays sparse under refinement."""
+    if current is None:
+        return []
+    options = [t for t in declared if t is not None]
+    universe = set(options)
+    chips = list(dict.fromkeys(t.chip for t in options))
+    thresholds = list(dict.fromkeys(t.min_saved_bytes for t in options))
+    out: List[TpuOption] = []
+    ci = chips.index(current.chip) if current.chip in chips else -1
+    for chip in _adjacent(chips, ci):
+        cand = dataclasses.replace(current, chip=chip)
+        if cand in universe:
+            out.append(cand)
+    ti = (thresholds.index(current.min_saved_bytes)
+          if current.min_saved_bytes in thresholds else -1)
+    for thr in _adjacent(thresholds, ti):
+        cand = dataclasses.replace(current, min_saved_bytes=thr)
+        if cand in universe:
+            out.append(cand)
+    return out

@@ -74,7 +74,7 @@ def reference_artifacts(out_dir, traces=contextlib.nullcontext):
     try:
         with accel.use_backend("numpy"), traces(), \
                 contextlib.redirect_stdout(io.StringIO()):
-            for name in port_run.ALL:
+            for name in port_run.CIM:
                 _ref_driver(name).main()
     finally:
         common.ART, common._ENGINE = saved
@@ -135,7 +135,8 @@ def _files(stem):
 def port_artifacts(tmp_path_factory):
     out = tmp_path_factory.mktemp("port_artifacts")
     with contextlib.redirect_stdout(io.StringIO()):
-        assert port_run.main(["--device", "cpu", "--out", str(out)]) == 0
+        assert port_run.main(["--device", "cpu", "--out", str(out),
+                              *port_run.CIM]) == 0
     return out
 
 
@@ -153,14 +154,14 @@ def port_records():
     return port_sweeps("cpu")
 
 
-@pytest.mark.parametrize("name", port_run.ALL)
+@pytest.mark.parametrize("name", port_run.CIM)
 def test_artifact_equals_committed_reference(port_artifacts, name):
     for fname in _files(port_run.stem(name)):
         assert (port_artifacts / fname).read_bytes() == \
             (fixtures.ARTIFACTS_DIR / fname).read_bytes(), fname
 
 
-@pytest.mark.parametrize("name", port_run.ALL)
+@pytest.mark.parametrize("name", port_run.CIM)
 def test_artifact_equals_fresh_reference_run(port_artifacts,
                                              fresh_reference_artifacts,
                                              name):
@@ -193,7 +194,7 @@ def test_committed_records_equal_fresh_reference_run():
 
 def test_committed_artifacts_are_the_reference_drivers_names():
     names = sorted(p.name for p in fixtures.ARTIFACTS_DIR.iterdir())
-    assert names == sorted([*(f for name in port_run.ALL
+    assert names == sorted([*(f for name in port_run.CIM
                               for f in _files(port_run.stem(name))),
                             "records.json"])
     assert port_run.SWEEPS == ("fig14", "fig15", "fig16", "fig17",
@@ -207,7 +208,8 @@ def test_runner_lists_artifacts_and_rejects_unknown_names(capsys):
     listed = [line.split()[0] for line in
               capsys.readouterr().out.strip().splitlines()]
     assert listed == ["table3", "table5", "fig12", "fig13", "table6",
-                      "fig14", "fig15", "fig16", "fig17", "fig_adaptive"]
+                      "fig14", "fig15", "fig16", "fig17", "fig_adaptive",
+                      "tpu_macr", "fig_tpu_dse"]
     assert port_run.main(["--device", "cpu", "fig99"]) == 1
     assert "unknown benchmark 'fig99'" in capsys.readouterr().out
 

@@ -256,13 +256,19 @@ def test_pareto_front_equals_reference_on_hand_built_rows():
 
 
 def test_tpu_and_sampled_sweeps_are_refused_not_priced_as_cim():
-    """No backend of the port prices a TPU point, so the TPU axis is
-    refused where it is given and no record is labelled with one.  The
-    sampling knob is priced by the sampled pipeline: the port's records
-    have the reference's fields, sampling key and CI columns included, in
-    the reference's order and with its defaults."""
-    with pytest.raises(TypeError, match="tpus"):
-        port.SweepSpace(workloads=("NB",), tpus=("v5e",))
+    """A TPU point is priced by the TPU backend alone: the CiM backend
+    refuses it, whether its workload is an arch or a Table-IV program, and
+    records nothing.  The sampling knob is priced by the sampled pipeline:
+    the port's records have the reference's fields, sampling key and CI
+    columns included, in the reference's order and with its defaults."""
+    for workload in ("NB", "xlstm-125m"):
+        space = port.SweepSpace(workloads=(workload,), tpus=("v5e",))
+        assert [p.tpu is not None for p in space] == [True]
+        for executor in ("thread", "serial"):
+            eng = port.DSEEngine(device="cpu", executor=executor)
+            with pytest.raises(ValueError, match="TpuBackend"):
+                eng.run(space)
+            assert eng.analysis.stats()["trace_builds"] == 0
     assert [(f.name, f.default) for f in dataclasses.fields(
         port.SweepRecord)] == [(f.name, f.default) for f in
                                dataclasses.fields(ref.SweepRecord)]

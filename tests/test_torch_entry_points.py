@@ -211,15 +211,43 @@ def test_dse_cim_second_run_on_a_store_builds_nothing(tmp_path):
     assert "3 trace hits / 9 selection hits / 0 writes" in outs[1]
 
 
-def test_dse_cim_backend_tpu_exits_2_with_one_line(capsys):
+def test_dse_cim_backend_tpu_exits_2_with_one_line(tmp_path):
+    """``--backend tpu`` prices the accelerator-mode space through
+    ``TpuBackend`` on the device: exit 0, and every line it prints is the
+    engine's record for the same space (never a CiM record)."""
     cli = _load(ROOT / "examples/torch_dse_cim.py", "torch_dse_cim")
-    rc = cli.main(["--backend", "tpu", "--workload", "xlstm-125m",
-                   "--device", "cpu"])
-    captured = capsys.readouterr()
-    assert rc == 2
-    (line,) = captured.err.strip().splitlines()
-    assert "GPU-mode analysis backend" in line
-    assert captured.out == ""                # never priced as CiM
+    rc, out = _printed(cli, ["--backend", "tpu", "--workload", "xlstm-125m",
+                             "--device", "cpu", "--chips", "v5e,v5p",
+                             "--thresholds", "16K,1M",
+                             "--json", str(tmp_path / "tpu.json")])
+    assert rc == 0
+    from repro_torch.dse import (DSEEngine, SweepSpace, TPU_PRESETS,
+                                 TpuBackend, TpuOption)
+    space = SweepSpace(workloads=("xlstm-125m",), tpus=tuple(
+        TpuOption(TPU_PRESETS[c], t) for c in ("v5e", "v5p")
+        for t in (1 << 14, 1 << 20)))
+    want = DSEEngine(backend=TpuBackend(), device="cpu").run(space)
+    front = want.pareto(("energy_improvement", "speedup"))
+    lines = [
+        "== xlstm-125m: 4 design points, 1 ATen-graph analysis ==",
+        "   done in _s (graph analyses 1, fusion selections 2)",
+        "== chip slice (threshold thr16K) =="]
+    lines += [f"  {r.cache:6s} E-impr {r.energy_improvement:5.2f}x "
+              f"speedup {r.speedup:5.2f}x bound {r.cim_runtime_ms:.4f}ms"
+              for r in want if r.cim_set == "thr16K"]
+    lines.append("== fusion-threshold slice (chip v5e) ==")
+    lines += [f"  {r.cim_set:8s} tpu_macr {r.macr:.3f} "
+              f"E-impr {r.energy_improvement:5.2f}x "
+              f"speedup {r.speedup:5.2f}x" for r in want if r.cache == "v5e"]
+    lines.append("== Pareto frontier (energy improvement vs speedup) ==")
+    lines += [f"  {r.workload}/{r.cache}/{r.cim_set:8s} "
+              f"E {r.energy_improvement:5.2f}x spd {r.speedup:5.2f}x"
+              for r in front]
+    lines.append("[json] <dir>/tpu.json")
+    assert _comparable(out, str(tmp_path)) == lines
+    assert _records(tmp_path / "tpu.json")["records"] == \
+        [r.to_dict() for r in want]
+    assert all(r.backend == "tpu" and r.tech == "tpu" for r in want)
 
 
 def test_dse_cim_clear_error_on_newer_store(tmp_path, capsys):

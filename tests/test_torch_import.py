@@ -278,6 +278,49 @@ def test_entry_points_run_with_jax_repro_and_triton_blocked():
     assert out["single_pass"] == want["digest"]
 
 
+_BLOCKED_TPU = r"""
+import contextlib, io, json, pathlib, sys, tempfile
+for name in ("jax", "jaxlib", "repro", "triton"):
+    sys.modules[name] = None           # any import of them now fails
+from repro_torch.bench import fig_tpu_dse, run
+from repro_torch.dse import DSEEngine, SweepSpace, TpuBackend
+from repro_torch.dse import fixtures as tpu_fixtures
+from repro_torch.dse.service import DSEService
+recorded = DSEEngine(backend=tpu_fixtures.RecordedTpuBackend(),
+                     device="cpu").run(fig_tpu_dse.space())
+res = DSEEngine(backend=TpuBackend(), device="cpu").run(
+    SweepSpace(workloads=("xlstm-125m",), tpus=("v5e", "v4")))
+events = list(DSEService(device="cpu", tracing=False).handle_query(
+    {"backend": "tpu", "workloads": ["xlstm-125m"], "tpus": ["v5e", "v4"]}))
+out = pathlib.Path(tempfile.mkdtemp())
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = run.main(["--device", "cpu", "--out", str(out), "tpu_macr"])
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print(json.dumps({"grid": [r.to_dict() for r in recorded]
+                          == tpu_fixtures.load()["grid"]["records"],
+                  "service": events[-1]["records"]
+                             == [r.to_dict() for r in res],
+                  "rc": rc, "rows": len(json.loads(
+                      (out / "tpu_macr.json").read_text())),
+                  "loaded": loaded}))
+"""
+
+
+def test_tpu_backend_runs_with_jax_repro_and_triton_blocked():
+    """The accelerator-mode backend, its fixture, the service's "tpu"
+    backend and ``python -m repro_torch.bench tpu_macr`` import nothing of
+    the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_TPU], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"grid": True, "service": True, "rc": 0, "rows": 10,
+                   "loaded": []}
+
+
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")

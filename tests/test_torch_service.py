@@ -18,11 +18,12 @@ every event are equal on every key: both packages report the same keys
 (``trace_builds``, ``trace_hits``, ``offload_builds``, ``offload_hits``,
 ``replay_batches``), and neither lacks one.
 
-What differs by design: the port serves the CiM backend alone (``/healthz``
-lists ``["cim"]``, ``/metrics`` has one ``cache`` entry), a ``"backend":
-"tpu"`` request is a 400 that names the missing GPU-mode backend, and the
-``/metrics`` ``accel`` block holds the device and the kernels' launch
-counts in place of the reference's accel backend and jit compiles.
+Both packages serve the same two backends (``/healthz`` lists ``["cim",
+"tpu"]``); a ``"backend": "tpu"`` request is refused or parsed as the
+reference does it, and a TPU space is never priced as CiM.  What differs
+by design: the ``/metrics`` ``accel`` block holds the device and the
+kernels' launch counts in place of the reference's accel backend and jit
+compiles.
 """
 import dataclasses
 import http.client
@@ -166,7 +167,7 @@ BAD_REQUESTS = [
     ({"workloads": ["KM@zero"], "sampling": "stratified"}, "scale"),
     (["NB"], "JSON object"),
 ]
-#: the reference's TPU-mode requests: the port has no GPU-mode backend yet
+#: the reference's TPU-mode requests: one it prices, four it refuses
 TPU_REQUESTS = [
     {"workloads": ["NB"], "backend": "tpu"},
     {"workloads": ["xlstm-125m"], "backend": "tpu", "techs": ["sram"]},
@@ -185,8 +186,17 @@ def test_parse_request_rejects(doc, fragment):
 
 @pytest.mark.parametrize("doc", TPU_REQUESTS)
 def test_tpu_backend_is_refused_not_priced_as_cim(doc):
-    with pytest.raises(RequestError, match="GPU-mode analysis backend"):
-        parse_request(doc)
+    """The one TPU request with a valid arch and TPU-only axes parses into
+    a space of TPU points on the "tpu" backend; the other four are
+    refused.  None becomes a CiM space."""
+    if doc.get("tpus") != ["v5e"]:
+        with pytest.raises(RequestError):
+            parse_request(doc)
+        return
+    req = parse_request(doc)
+    assert req["backend"] == "tpu"
+    assert [p.tpu is not None for p in req["space"]] == [True]
+    assert req["space"].points()[0].label == "xlstm-125m/v5e/thr64K"
 
 
 def test_records_json_sanitizes_nonfinite():
@@ -245,15 +255,22 @@ def test_bad_request_messages_equal_reference(doc):
 
 @pytest.mark.parametrize("doc", TPU_REQUESTS)
 def test_tpu_requests_are_400_in_both(doc):
-    """The reference refuses or prices a TPU request; the port refuses
-    every one of them (a request the reference answers is still a 400
-    here, never a CiM pricing)."""
+    """A TPU request the reference refuses (a 400) the port refuses with
+    the same message; one the reference accepts the port parses into the
+    same space, point for point."""
     try:
-        ref_service.parse_request(doc)
-    except ref_service.RequestError:
-        pass
-    with pytest.raises(RequestError):
-        parse_request(doc)
+        want = ref_service.parse_request(doc)
+    except ref_service.RequestError as exc:
+        with pytest.raises(RequestError) as got:
+            parse_request(doc)
+        assert str(got.value) == str(exc)
+        return
+    got = parse_request(doc)
+    assert got["backend"] == want["backend"] == "tpu"
+    assert [p.label for p in got["space"]] == \
+        [p.label for p in want["space"]]
+    assert [dataclasses.asdict(p.tpu) for p in got["space"]] == \
+        [dataclasses.asdict(p.tpu) for p in want["space"]]
 
 
 # ----------------------------------------------------------------- metrics
@@ -300,7 +317,7 @@ def test_healthz_and_unknown_paths(daemon):
     url, client, _service = daemon
     health = client.healthz()
     assert health["status"] == "ok"
-    assert health["backends"] == ["cim"]
+    assert health["backends"] == ["cim", "tpu"]
     with pytest.raises(ServiceError) as err:
         client._get_json("/nope")
     assert err.value.status == 404
@@ -441,10 +458,11 @@ def test_metrics_snapshot_shape(daemon):
     doc = client.metrics()
     assert doc["uptime_s"] >= 0
     assert doc["dedup_ratio"] is None or doc["dedup_ratio"] >= 1
-    assert list(doc["cache"]) == ["cim"]
-    for layer in ("layer1", "layer2"):
-        stats = doc["cache"]["cim"][layer]
-        assert set(stats) == {"builds", "hits", "hit_rate"}
+    assert list(doc["cache"]) == ["cim", "tpu"]
+    for backend in ("cim", "tpu"):
+        for layer in ("layer1", "layer2"):
+            stats = doc["cache"][backend][layer]
+            assert set(stats) == {"builds", "hits", "hit_rate"}
     assert doc["accel"] == {"device": "cpu",
                             "launches": accel.launch_counts()}
     assert "store" not in doc                # no cache_dir on this daemon
