@@ -192,7 +192,29 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   request through ``DSEService``, records == the engine's;
                   ``examples/torch_dse_cim.py --backend tpu`` as a process
                   (exit 0); no launch of K1-K8 over the phase;
-  14. result   -- the kernel table as one JSON line, the nvidia-smi line,
+  14. sharded path -- ``repro_torch.dist`` and ``launch`` (no kernel: the
+                  reference's sharding, lowering and roofline reach no
+                  Pallas kernel): the dry run at published widths, each
+                  cell (gemma3-1b x train_4k, prefill_32k, decode_32k,
+                  long_500k and moonshot-v1-16b-a3b x train_4k on the fake
+                  (16, 16) mesh, yi-34b x train_4k on (2, 16, 16)) a
+                  ``python -m repro_torch.launch.dryrun --check`` process,
+                  all at once: record seconds, eqns, FLOPs, bytes and
+                  collective bytes by kind per device, ok with collective
+                  bytes > 0, and the FLOP checks (world-1 count ==
+                  ``FlopCounterMode``; strategy "data" exactly world-1 / the
+                  data split; "auto" between world-1 / devices and / the
+                  data split); the spec trees of the ten archs == the
+                  committed reference specs; ``cell_roofline`` == the
+                  reference's rows on the committed records; ``python -m
+                  repro_torch.bench roofline`` on this run's records;
+                  ``launch.serve`` and ``launch.train`` (gemma3-1b reduced,
+                  f32) with ``--model-parallel 2``, run as (1, 1): tokens
+                  and losses == ``--model-parallel 1``; ``elastic_remesh()``
+                  on the card gives (1, 1); no launch of K1-K8, summed
+                  over the counts each dry-run and driver process reports
+                  for its own run;
+  15. result   -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -201,6 +223,7 @@ device it exits with code 2 before doing anything.  Longer output (the
 compiler's register report, per-workload stage seconds) goes to
 ``chiprun_out/chip_smoke.json``.
 """
+import collections
 import contextlib
 import ctypes
 import io
@@ -2302,6 +2325,212 @@ def tpu_dse_phase(dev, smi):
                 launches=launches, phase_s=phase_s, failures=failures)
 
 
+def _popen(argv, env_extra=None):
+    """Start one of the port's entry points as a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env_extra or {}))
+    return subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc, timeout):
+    """(exit code, stdout, stderr) of a started process; one that outlives
+    ``timeout`` is killed and reported as exit code 124."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        return proc.returncode, out, err
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        return 124, out, err
+
+
+def _json_line(text):
+    return json.loads(next(line for line in text.splitlines()
+                           if line.startswith("{")))
+
+
+def sharded_phase(dev, smi):
+    """Phase 14: the sharded path.  (a) The dry run at published widths:
+    each cell of ``launch.fixtures.PHASE_CELLS`` recorded per device by
+    ``python -m repro_torch.launch.dryrun --check`` in a process of its own
+    (a fake process group of 256 or 512 ranks, meshes of device type cuda,
+    meta DTensors: nothing allocated), all at once; each must record ok
+    with collective bytes > 0 and pass its FLOP checks.  (b) The spec trees
+    of the ten archs at published widths == the committed reference specs;
+    the port's ``cell_roofline`` on the committed records == the
+    reference's rows; ``python -m repro_torch.bench roofline`` on this run's
+    records.  (c) ``launch.serve`` and ``launch.train`` (gemma3-1b reduced,
+    f32) with ``--model-parallel 2``, which one card runs as (1, 1): tokens
+    and losses == the ``--model-parallel 1`` runs.  (d) ``elastic_remesh()``
+    in a process on the card: (1, 1).  (e) No K1-K8 launch: each dry-run
+    record and each driver's JSON line holds the launches of every kernel
+    over its own run, and their sum must be 0.  Returns the summary for the
+    detail file (``failures`` lists misses)."""
+    from repro_torch.core import roofline
+    from repro_torch.dist import fixtures as spec_fixtures
+    from repro_torch.launch import fixtures as launch_fixtures
+
+    t_phase = time.perf_counter()
+    failures = []
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="sharded_"))
+    dry_dir = tmp / "dryrun"
+
+    # (a) the six cells and (c)/(d) the drivers, all started at once
+    cells = {}
+    for arch, shape, mesh in launch_fixtures.PHASE_CELLS:
+        cells[(arch, shape, mesh)] = (time.perf_counter(), _popen(
+            ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--device", "cuda", "--out",
+             str(dry_dir), "--force", "--check"],
+            {"OMP_NUM_THREADS": "1"}))
+    common = ["--device", "cuda", "--arch", "gemma3-1b", "--dtype", "float32"]
+    drivers = {}
+    for mp in (1, 2):
+        drivers[("serve", mp)] = _popen(
+            ["-m", "repro_torch.launch.serve", *common, "--batch", "4",
+             "--prompt-len", "64", "--gen", "8", "--model-parallel", str(mp)])
+        drivers[("train", mp)] = _popen(
+            ["-m", "repro_torch.launch.train", *common, "--batch", "4",
+             "--seq-len", "64", "--steps", "4", "--log-every", "1",
+             "--save-every", "0", "--ckpt-dir", str(tmp / f"ckpt{mp}"),
+             "--model-parallel", str(mp)])
+    remesh = _popen(["-c", "import json; from repro_torch.dist.sharding "
+                     "import mesh_axes; from repro_torch.ft.manager import "
+                     "elastic_remesh; print(json.dumps(mesh_axes("
+                     "elastic_remesh())))"])
+
+    # (b) while those run: the spec trees and the reference's rows
+    t0 = time.perf_counter()
+    spec_bad = spec_fixtures.mismatches(spec_fixtures.port_records(),
+                                        spec_fixtures.load())
+    spec_s = time.perf_counter() - t0
+    if spec_bad:
+        failures.append(f"sharded: spec trees differ from the reference's: "
+                        f"{spec_bad[:8]}")
+    doc = launch_fixtures.load_roofline()
+    rows_equal = sum(roofline.cell_roofline(r) == row
+                     for r, row in zip(doc["records"], doc["rows"]))
+    if rows_equal != len(doc["rows"]):
+        failures.append(f"sharded: cell_roofline == the reference's on "
+                        f"{rows_equal} of {len(doc['rows'])} records")
+    print(f"sharded path: spec trees of {len(spec_fixtures.MESHES)} meshes "
+          f"x 10 archs == the reference's: {not spec_bad} ({spec_s:.2f} s); "
+          f"cell_roofline == the reference's on {rows_equal}/"
+          f"{len(doc['rows'])} committed records", flush=True)
+
+    records = {}
+    for key, (t_start, proc) in cells.items():
+        rc, out, err = _finish(proc, 900)
+        secs = time.perf_counter() - t_start
+        arch, shape, mesh = key
+        path = dry_dir / mesh / f"{arch}__{shape}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        rec["process_s"] = secs
+        records[f"{arch}/{shape}/{mesh}"] = rec
+        if rc != 0 or not rec.get("ok"):
+            failures.append(f"sharded: dry run {arch} x {shape} x {mesh}: "
+                            f"exit {rc}: {rec.get('error')} {err[-1500:]!r}")
+            continue
+        coll = rec["collectives"]
+        if coll["total"] <= 0:
+            failures.append(f"sharded: {arch} x {shape} x {mesh} recorded no "
+                            f"collective bytes")
+        chk = rec["flop_checks"]
+        by_kind = {k: v for k, v in coll.items()
+                   if not k.endswith("_count") and k != "total"}
+        print(f"  dry run {arch} x {shape} x {mesh} ({rec['n_devices']} "
+              f"devices): record {rec['record_s']} s (process done "
+              f"{secs:.1f} s after its start), {rec['eqns']} eqns, {rec['flops_per_device']:.4e} "
+              f"FLOP/device, {rec['bytes_accessed_per_device']:.4e} B/device, "
+              f"collective B/device {coll['total']:.4e} {json.dumps(by_kind)}; "
+              f"world-1 {chk['world1_flops']:.4e} FLOP == FlopCounterMode "
+              f"{chk['world1_equals_counter']}, data strategy "
+              f"{chk['data_flops_per_device']:.4e} == world-1 / "
+              f"{chk['data_size']} {chk['data_is_world1_over_data']}, auto "
+              f"within [world-1 / {chk['n_devices']}, world-1 / "
+              f"{chk['data_size']}] {chk['auto_within_bounds']}", flush=True)
+    dry_s = max((r.get("process_s", 0.0) for r in records.values()),
+                default=0.0)
+
+    rc, out, err = _finish(_popen(["-m", "repro_torch.bench", "--out",
+                                   str(tmp / "bench"), "roofline"],
+                                  {"DRYRUN_DIR": str(dry_dir)}), 300)
+    if rc != 0:
+        failures.append(f"sharded: bench roofline: exit {rc}: {err[-1500:]!r}")
+    print("\n".join(line for line in out.splitlines()
+                    if "Roofline" in line or " C " in line), flush=True)
+    own_rows = [roofline.cell_roofline(r) for r in records.values()
+                if r.get("ok")]
+    print(roofline.markdown_table(own_rows), flush=True)
+
+    # (c) the drivers: --model-parallel 2 runs as (1, 1), values ==
+    driven = {}
+    for key, proc in drivers.items():
+        rc, out, err = _finish(proc, 600)
+        if rc != 0:
+            failures.append(f"sharded: {key[0]} --model-parallel {key[1]}: "
+                            f"exit {rc}: {err[-1500:]!r}")
+            continue
+        driven[key] = (_json_line(out), out)
+    if len(driven) == 4:
+        s1, s2 = driven[("serve", 1)][0], driven[("serve", 2)][0]
+        t1, t2 = driven[("train", 1)][0], driven[("train", 2)][0]
+        same_tokens = s1["tokens"] == s2["tokens"]
+        same_losses = t1["losses"] == t2["losses"]
+        meshes = {f"{k[0]}/{k[1]}": v[0]["mesh"] for k, v in driven.items()}
+        if not (same_tokens and same_losses):
+            failures.append(f"sharded: --model-parallel 2 differs from 1: "
+                            f"tokens {same_tokens}, losses {same_losses}")
+        if any(m != {"data": 1, "model": 1} for m in meshes.values()) or \
+                "mesh={'data': 1, 'model': 1}" not in driven[("train", 2)][1]:
+            failures.append(f"sharded: a driver on one card did not run "
+                            f"as (1, 1): {meshes}")
+        print(f"  drivers, gemma3-1b reduced f32 on the card: serve "
+              f"--model-parallel 2 tokens == --model-parallel 1: "
+              f"{same_tokens}; train losses {t2['losses']} == "
+              f"{t1['losses']}: {same_losses}; meshes {meshes}", flush=True)
+
+    # (d) elastic_remesh on the card
+    rc, out, err = _finish(remesh, 300)
+    remeshed = _json_line(out) if rc == 0 else None
+    if remeshed != {"data": 1, "model": 1}:
+        failures.append(f"sharded: elastic_remesh() gave {remeshed}: "
+                        f"exit {rc}: {err[-1500:]!r}")
+    print(f"  elastic_remesh() on the card: {remeshed}", flush=True)
+
+    # (e) the sharded path launches none of K1-K8: the sum of the counts
+    # each dry-run cell and each driver reported for its own run
+    runs = {f"dryrun {k}": r.get("kernel_launches")
+            for k, r in records.items()}
+    runs.update({f"{k[0]} --model-parallel {k[1]}":
+                 v[0].get("kernel_launches") for k, v in driven.items()})
+    unreported = sorted(k for k, v in runs.items() if v is None)
+    launches = collections.Counter()
+    for counts in runs.values():
+        launches.update(counts or {})
+    launches = dict(launches)
+    print(f"  kernel launches summed over the {len(runs)} runs of the phase "
+          f"(none expected): {json.dumps(launches)}", flush=True)
+    if unreported or len(runs) != len(cells) + len(drivers):
+        failures.append(f"sharded: runs without kernel counts: "
+                        f"{unreported}, {len(runs)} of "
+                        f"{len(cells) + len(drivers)} runs read")
+    if any(launches.values()):
+        failures.append(f"sharded: kernels launched: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"sharded path: {phase_s:.3f} s (the dry-run processes "
+          f"{dry_s:.1f} s at most) on {torch.cuda.get_device_name(0)} "
+          f"({smi})", flush=True)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return dict(records=records, spec_trees_equal=not spec_bad,
+                reference_rows_equal=rows_equal, own_rows=own_rows,
+                drivers={f"{k[0]}/{k[1]}": v[0] for k, v in driven.items()},
+                elastic_remesh=remeshed, launches=launches,
+                phase_s=phase_s, failures=failures)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -2861,7 +3090,16 @@ def main():
         fail(f"{len(tpu['failures'])} failures in the accelerator-mode "
              f"DSE phase")
 
-    # --------------------------------------------------------- 14. result
+    # --------------------------------------------------- 14. sharded path
+    sharded = sharded_phase(dev, smi)
+    detail["sharded"] = sharded
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if sharded["failures"]:
+        for f in sharded["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(sharded['failures'])} failures in the sharded-path phase")
+
+    # --------------------------------------------------------- 15. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]

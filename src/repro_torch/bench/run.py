@@ -21,8 +21,10 @@ artifact: it runs :mod:`repro_torch.bench.sampling` (the twin of
 ``service`` likewise runs :mod:`repro_torch.bench.service` (the twin of
 ``benchmarks/bench_service.py``), and ``timing``
 :mod:`repro_torch.bench.timing` (the twin of
-``benchmarks/analysis_timing.py``).  ``roofline`` waits for the sharded
-dry run (ROADMAP Queue 1).
+``benchmarks/analysis_timing.py``).  ``roofline`` prints the three-term
+table of the port's dry-run artifacts (``python -m
+repro_torch.launch.dryrun``), as ``benchmarks/roofline.py`` does the
+reference's.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import time
 from repro_torch.bench import (common, fig12_macr_validation, fig13_macr,
                                fig14_cache_cfg, fig15_levels, fig16_tech,
                                fig17_host, fig_adaptive, fig_tpu_dse,
-                               table3_energy, table5_validation,
+                               roofline, table3_energy, table5_validation,
                                table6_speedup, tpu_macr)
 
 #: the CiM artifacts, each byte for byte the reference's
@@ -49,8 +51,9 @@ CIM = {
     "fig17": fig17_host,
     "fig_adaptive": fig_adaptive,
 }
-#: every artifact, in the reference's order (``roofline`` aside)
-ALL = {**CIM, "tpu_macr": tpu_macr, "fig_tpu_dse": fig_tpu_dse}
+#: every artifact, in the reference's order
+ALL = {**CIM, "tpu_macr": tpu_macr, "fig_tpu_dse": fig_tpu_dse,
+       "roofline": roofline}
 #: the CiM artifacts whose design space the engine sweeps (their drivers
 #: expose ``space()``)
 SWEEPS = tuple(name for name, mod in CIM.items() if hasattr(mod, "space"))

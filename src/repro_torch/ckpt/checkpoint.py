@@ -12,6 +12,11 @@ The file is the reference's: one npz entry per leaf, keyed by the
 ``/``-joined dict path in sorted key order (``params/layers/wq``,
 ``opt/m/...``, ``step``), bf16 widened to f32 and cast back on restore,
 so a snapshot either package writes loads in the other.
+
+``ShardedCheckpointManager`` keeps the same files for a state of DTensors
+spread over the ranks of a mesh: every rank gathers the full tensors (a
+collective), rank 0 alone writes them, and a restore reads the snapshot on
+every rank and re-places each leaf as the template's leaf is placed.
 """
 from __future__ import annotations
 
@@ -144,3 +149,42 @@ class CheckpointManager:
             return None, template
         state = load_checkpoint(str(self.dir / f"{step}.npz"), template)
         return step, state
+
+
+class ShardedCheckpointManager(CheckpointManager):
+    """:class:`CheckpointManager` for a state of DTensors on ``mesh``.
+
+    Every rank calls :meth:`maybe_save` at the same steps (the gather is a
+    collective); rank 0 writes the full tensors, once.  :meth:`wait` ends
+    with a barrier, so no rank reads a snapshot rank 0 is still writing."""
+
+    def __init__(self, directory: str, mesh, keep: int = 3, every: int = 50):
+        super().__init__(directory, keep=keep, every=every)
+        self.mesh = mesh
+
+    def maybe_save(self, step: int, state: Any, *, force: bool = False) -> bool:
+        import torch.distributed as dist
+        from repro_torch.dist.sharding import gather
+        if not force and (self.every <= 0 or step % self.every != 0):
+            return False
+        full = gather(state)
+        if dist.get_rank() == 0:
+            host_state = _snapshot(full)
+            CheckpointManager.wait(self)
+            with self._lock:
+                self._pending = self._pool.submit(self._save_and_gc, step,
+                                                  host_state)
+        return True
+
+    def wait(self) -> None:
+        import torch.distributed as dist
+        super().wait()
+        dist.barrier()
+
+    def restore_latest(self, template: Any) -> Tuple[Optional[int], Any]:
+        from repro_torch.dist.sharding import distribute
+        step, state = super().restore_latest(template)
+        if step is None:
+            return None, template
+        placements = tree_map(lambda t: t.placements, template)
+        return step, distribute(state, self.mesh, placements)

@@ -13,8 +13,10 @@ from repro_torch.core.cache import (CacheConfig, CacheHierarchy, L1_32K,
 from repro_torch.core.columnar import ColumnarTrace
 from repro_torch.core.device_model import FEFET, SRAM, TECHS, TechModel
 from repro_torch.core.host_model import DEFAULT_HOST, HostModel
-from repro_torch.core.idg import FlowIndex, IDGBuilder, build_flow_index
-from repro_torch.core.isa import CIM_SET_FULL, CIM_SET_LOGIC, CIM_SET_STT
+from repro_torch.core.idg import (FlowIndex, IDGBuilder, IDGNode,
+                                  build_flow_index, build_rut_iht)
+from repro_torch.core.isa import (CIM_SET_FULL, CIM_SET_LOGIC, CIM_SET_STT,
+                                  Inst, Trace)
 from repro_torch.core.offload import (Candidate, OffloadConfig,
                                       OffloadResult, TraceAnalysis,
                                       analyze_trace, select_candidates)
@@ -28,8 +30,9 @@ from repro_torch.core.trace import (Machine, StructuralTrace, TraceLimits,
 __all__ = [
     "CacheConfig", "CacheHierarchy", "L1_32K", "L1_64K", "L2_256K", "L2_2M",
     "SPM_1M", "ColumnarTrace", "FEFET", "SRAM", "TECHS", "TechModel",
-    "DEFAULT_HOST", "HostModel", "FlowIndex", "IDGBuilder",
-    "build_flow_index", "CIM_SET_FULL", "CIM_SET_LOGIC", "CIM_SET_STT",
+    "DEFAULT_HOST", "HostModel", "FlowIndex", "IDGBuilder", "IDGNode",
+    "build_flow_index", "build_rut_iht", "CIM_SET_FULL", "CIM_SET_LOGIC",
+    "CIM_SET_STT", "Inst", "Trace",
     "Candidate", "OffloadConfig", "OffloadResult", "TraceAnalysis",
     "analyze_trace", "select_candidates", "Profiler", "SystemReport",
     "profile_system", "ReshapedTrace", "reshape", "StructuralTrace",

@@ -102,13 +102,25 @@ class _Level:
         return (addr // LINE) % self.cfg.banks
 
 
+@dataclasses.dataclass
+class AccessResult:
+    level: str                            # "L1" | "L2" | "MEM" (service level)
+    hit: bool                             # hit at the *first* level probed
+    bank: int                             # bank id at the service level
+    mshr: bool                            # merged into an outstanding miss
+    line: int
+
+
 class CacheHierarchy:
     """L1 + optional L2 in front of main memory (inclusive, write-allocate).
 
-    :meth:`replay` records an entire address stream in one call, returning
-    the four memory-response *columns* (level/hit/bank/mshr codes) the
-    columnar trace stores.  (The reference's probe-style ``access`` /
-    ``residency`` / ``stats`` API has no caller in the port yet.)
+    Two recording APIs drive the same simulator state:
+
+      * :meth:`access` — one :class:`AccessResult` per call (the
+        probe-style interface, kept for tests and interactive use);
+      * :meth:`replay` — an entire address stream in one call, returning
+        the four memory-response *columns* (level/hit/bank/mshr codes) the
+        columnar trace stores.
     """
 
     def __init__(self, levels: Tuple[CacheConfig, ...] = (L1_32K, L2_256K)):
@@ -119,7 +131,8 @@ class CacheHierarchy:
     # -- probes ----------------------------------------------------------
     def _access(self, addr: int, is_write: bool) -> Tuple[int, bool, int, bool]:
         """One access; returns (service-level index+1 [len+1 => MEM],
-        first-level hit, bank, mshr-merged).  The core of :meth:`replay`."""
+        first-level hit, bank, mshr-merged).  Lean core shared by
+        :meth:`access` and :meth:`replay`."""
         line = addr // LINE
         levels = self.levels
         mshr_merged = False
@@ -145,6 +158,12 @@ class CacheHierarchy:
             else levels[-1]
         return service, service == 1, bank_level.bank_of(addr), mshr_merged
 
+    def access(self, addr: int, is_write: bool) -> AccessResult:
+        service, first_hit, bank, mshr = self._access(addr, is_write)
+        name = (self.levels[service - 1].cfg.name
+                if service <= len(self.levels) else "MEM")
+        return AccessResult(name, first_hit, bank, mshr, addr // LINE)
+
     def replay(self, addrs, is_writes):
         """Batched access recording over a whole trace's memory stream.
 
@@ -153,7 +172,8 @@ class CacheHierarchy:
         ``(level, hit, bank, mshr)`` int8/int8/int16/bool CPU tensors using
         the :data:`repro_torch.core.isa.LEVELS` level codes.  State
         evolution is identical to calling :meth:`_access` element by
-        element -- the batched form only removes per-access overhead.
+        element (or :meth:`access`) -- the batched form only removes
+        per-access overhead.
         """
         import torch
         from repro_torch.core.isa import LEVEL_CODE, LEVEL_MEM
@@ -224,6 +244,20 @@ class CacheHierarchy:
             lv.hits = int(counters.get(f"{lv.cfg.name}_hits", 0))
             lv.misses = int(counters.get(f"{lv.cfg.name}_misses", 0))
             lv.writebacks = int(counters.get(f"{lv.cfg.name}_writebacks", 0))
+
+    # -- residency query used by offload selection ------------------------
+    def residency(self, addr: int) -> str:
+        line = addr // LINE
+        for lv in self.levels:
+            if line in lv.sets[line % lv.cfg.n_sets]:
+                return lv.cfg.name
+        return "MEM"
+
+    def bank_of(self, addr: int, level: str) -> int:
+        for lv in self.levels:
+            if lv.cfg.name == level:
+                return lv.bank_of(addr)
+        return 0
 
     def stats(self) -> Dict[str, Dict[str, int]]:
         """Per-level hits/misses/writebacks with the level's geometry, and

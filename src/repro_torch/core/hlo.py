@@ -1,5 +1,5 @@
 """ATen-graph analysis: Eva-CiM's IDG offload analysis adapted to a model
-step (twin of ``repro/core/hlo.py``'s fusion half).
+step, and the parsing of post-SPMD HLO text (twin of ``repro/core/hlo.py``).
 
 The reference walks a jaxpr; the port records the step's ATen graph and
 walks that.  :class:`GraphRecorder` is a ``TorchDispatchMode`` that runs
@@ -21,13 +21,24 @@ The op classes are the reference's sets of jaxpr primitives;
 :data:`ATEN_TWINS` lists beside each primitive the ATen ops that take its
 place in the recorded graph.  An in-place ATen op (``add_``) takes its
 out-of-place op's place; an op in no list is "other", as an unknown
-primitive is in the reference.  Collective parsing of HLO text
-(``collective_bytes``, ``scan_trip_counts``, ``shape_bytes``) belongs to the
-sharded dry run and has no twin here yet.
+primitive is in the reference.
+
+A step that runs on DTensors is recorded *per device*: the recorder steps
+aside for every op on a DTensor (returning ``NotImplemented``, so DTensor
+unwraps it), skips DTensor's own sharding propagation (which runs the op
+on fake tensors of the global shape) and records the local ops and the
+collectives that DTensor issues, as a post-SPMD HLO module holds one
+device's program.  :data:`COLLECTIVES` names
+each collective op by its HLO opcode.
+
+Collective parsing of HLO text (``shape_bytes``, ``collective_bytes``,
+``scan_trip_counts``) is the reference's, as string functions: the port has
+no HLO, so they serve text from elsewhere and the tests that hold them.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 import threading
 from typing import Any, Callable, Dict, List, Set, Tuple
 
@@ -35,6 +46,70 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.weak import WeakIdKeyDictionary
+
+# ======================================================================
+# 1. collective parsing (post-SPMD HLO text)
+# ======================================================================
+_COLL_RE = re.compile(
+    r"(\w[\w.\-]*)\s*=\s*((?:\([^)]*\))|(?:\S+))\s*"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)\b")
+_SHAPE_RE = re.compile(
+    r"(f64|f32|bf16|f16|f8\w*|s64|s32|s16|s8|u64|u32|u16|u8|pred)\[([\d,]*)\]")
+
+_DTYPE_BYTES = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
+                "bf16": 2, "f16": 2, "s16": 2, "u16": 2,
+                "s8": 1, "u8": 1, "pred": 1}
+
+
+def shape_bytes(type_str: str) -> int:
+    """Total bytes of every typed shape in an HLO type string."""
+    total = 0
+    for m in _SHAPE_RE.finditer(type_str):
+        dt, dims = m.group(1), m.group(2)
+        n = 1
+        if dims:
+            for d in dims.split(","):
+                n *= int(d)
+        b = _DTYPE_BYTES.get(dt, 1 if dt.startswith("f8") else 4)
+        total += n * b
+    return total
+
+
+def collective_bytes(hlo_text: str) -> Dict[str, int]:
+    """Per-device bytes by collective kind, from result shapes."""
+    out: Dict[str, int] = {}
+    for line in hlo_text.splitlines():
+        m = _COLL_RE.search(line)
+        if not m:
+            continue
+        kind = m.group(3)
+        nbytes = shape_bytes(m.group(2))
+        out[kind] = out.get(kind, 0) + nbytes
+        out[kind + "_count"] = out.get(kind + "_count", 0) + 1
+    out["total"] = sum(v for k, v in out.items() if not k.endswith("_count"))
+    return out
+
+
+def scan_trip_counts(hlo_text: str) -> List[int]:
+    return [int(x) for x in re.findall(r"trip_count=(\d+)", hlo_text)]
+
+
+# ======================================================================
+# 2. the recorded ATen graph
+# ======================================================================
+#: each collective op DTensor issues, by its HLO opcode (the keys of
+#: :func:`collective_bytes`); ``shard_dim_alltoall`` is DTensor's own
+#: all-to-all of one sharded dim
+COLLECTIVES: Dict[str, str] = {
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_dtensor.shard_dim_alltoall": "all-to-all",
+}
 
 # op classes for the dataflow walk: the reference's sets, verbatim
 _ELEMENTWISE = {
@@ -165,7 +240,8 @@ class GraphRecorder(TorchDispatchMode):
     autograd unpacks for the backward) becomes a value without a producer,
     as a jaxpr's inputs are.  Arguments an op writes in place, and every
     tensor it returns, become new values.  Ops that touch no tensor (dtype
-    promotion queries) are not recorded."""
+    promotion queries) are not recorded.  On DTensors, only one device's
+    local ops and collectives are (see the module docstring)."""
 
     def __init__(self):
         super().__init__()
@@ -189,6 +265,11 @@ class GraphRecorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(t is not torch.Tensor for t in types):  # a tensor subclass
+            if any(issubclass(t, _dtensor_type()) for t in types):
+                return NotImplemented          # DTensor runs it locally
+            if any(issubclass(t, _fake_type()) for t in types):
+                return func(*args, **kwargs)   # global-shape propagation
         out = func(*args, **kwargs)
         info = self._ops.get(func)
         if info is None:
@@ -210,6 +291,16 @@ class GraphRecorder(TorchDispatchMode):
         with self._lock:
             return Graph(list(self.eqns), list(self.shapes),
                          list(self.itemsizes))
+
+
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _fake_type():
+    from torch._subclasses.fake_tensor import FakeTensor
+    return FakeTensor
 
 
 def _op_info(func) -> Tuple[str, Tuple[Tuple[int, str], ...]]:
@@ -240,7 +331,7 @@ def record_graph(fn: Callable, *args, **kwargs) -> Tuple[Graph, Any]:
 
 
 # ======================================================================
-# fusion-candidate analysis (the accelerator-mode IDG)
+# 3. fusion-candidate analysis (the accelerator-mode IDG)
 # ======================================================================
 @dataclasses.dataclass
 class FusionCandidate:

@@ -479,6 +479,10 @@ _SAME = frozenset(("clone", "alias", "detach", "lift_fresh"))
 _LITERALS = frozenset(("full", "zeros", "ones", "scalar_tensor",
                        "full_like", "zeros_like", "ones_like", "new_full",
                        "new_zeros", "new_ones"))
+# random draws: the reference's random_seed/_wrap/_bits/_unwrap, priced as a
+# zero-data value of the output's shape that emits nothing
+_RANDOM = frozenset(("rand", "randn", "randint", "randperm", "rand_like",
+                     "randn_like", "randint_like"))
 # reads of a value by the program (index arithmetic, branch conditions):
 # no instructions, as the reference's dynamic_slice start and cond index
 _READS = frozenset(("_local_scalar_dense", "is_nonzero"))
@@ -621,6 +625,8 @@ class TraceInterpreter(TorchDispatchMode):
             return lambda vm, f, out, a, kw: vm.value(a[0])
         if name in _LITERALS:
             return cls._literal
+        if name in _RANDOM:
+            return cls._random
         if name in _READS:
             return lambda vm, f, out, a, kw: None
         if name in _REDUCE:
@@ -1034,6 +1040,13 @@ class TraceInterpreter(TorchDispatchMode):
         if func._opname == "scalar_tensor":
             return Value(np.asarray(args[0]), None)
         return Value(out.detach().numpy().copy(), None)
+
+    def _random(self, func, out, args, kwargs) -> Value:
+        """A draw is a zero-data immediate of the output's shape, as the
+        reference prices its PRNG primitives: the VM computes on zeros
+        where the program drew numbers, and emits nothing for the draw."""
+        return Value(np.zeros(tuple(out.shape), canonical_dtype(out.dtype)),
+                     None)
 
     def _arange(self, func, out, args, kwargs) -> Value:
         if func._overloadname != "default":

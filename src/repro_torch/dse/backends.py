@@ -68,9 +68,16 @@ class AnalysisBackend(abc.ABC):
     in the :class:`~repro_torch.dse.engine.AnalysisCache` they are handed,
     all persistence in the :class:`~repro_torch.dse.store.AnalysisStore`
     behind it.
+
+    ``name`` namespaces persisted artifacts; ``version`` stamps them (a
+    bump invalidates this backend's store entries and no one else's).
     """
 
     name: str = "abstract"
+
+    @property
+    def version(self) -> int:
+        return 0
 
     # ------------------------------------------------------------- phases
     @abc.abstractmethod
@@ -105,13 +112,18 @@ class AnalysisBackend(abc.ABC):
                           workload=point.workload):
                 return self.price(point, analysis, selection, host)
 
+    def warm(self, cache, point: SweepPoint) -> None:
+        """Build the layer-1 artifact ahead of the pricing fan-out (the
+        engine warms each analysis key serially for deterministic build
+        order and exactly one expensive pass per key)."""
+        self.analyze(cache, point)
+
     def warm_many(self, cache, points: Sequence[SweepPoint]) -> None:
-        """Build the layer-1 artifact of one representative point per
-        analysis key ahead of the pricing fan-out.  The engine hands over
-        the whole key set at once so backends can batch across it; the
-        default is the serial per-key warm."""
+        """Warm one representative point per analysis key.  The engine
+        hands over the whole key set at once so backends can batch across
+        it; the default is the serial per-key warm."""
         for p in points:
-            self.analyze(cache, p)
+            self.warm(cache, p)
 
 
 def _refuse_tpu_point(point: SweepPoint) -> None:
@@ -146,6 +158,10 @@ class CimBackend(AnalysisBackend):
     sampling: SamplingSpec = SamplingSpec()
 
     name = "cim"
+
+    @property
+    def version(self) -> int:
+        return TRACE_VM_VERSION
 
     @property
     def variant(self) -> Optional[str]:
@@ -219,7 +235,7 @@ class CimBackend(AnalysisBackend):
             1, ("cim.sampled", workload, skey),
             lambda: spl.sampled_structural(workload, spec),
             store_spec={"backend": f"{NAMESPACE}.sampled",
-                        "version": TRACE_VM_VERSION,
+                        "version": self.version,
                         "sampling_version": SAMPLING_VERSION,
                         "workload": workload,
                         "fingerprint": workload_fingerprint(base),

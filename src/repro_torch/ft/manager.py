@@ -1,6 +1,5 @@
-"""Fault tolerance: checkpoint/restart orchestration and straggler
-detection (port of ``repro.ft.manager``; its ``elastic_remesh``, which
-builds a device mesh, waits for the port of ``dist/``).
+"""Fault tolerance: checkpoint/restart orchestration, straggler detection
+and elastic re-meshing (port of ``repro.ft.manager``).
 
 Design (CPU-testable, mesh-agnostic):
 
@@ -8,6 +7,10 @@ Design (CPU-testable, mesh-agnostic):
   slower than ``threshold`` x the rolling median (ICI-jitter tolerant) and
   recommends mitigation (re-shard victim host's data / restart the worker).
   On a real pod this feeds the control plane; here it logs + counts.
+
+* ``elastic_remesh`` — the largest (data, model) mesh the live ranks
+  support: after losing a host, training resumes on fewer ranks with the
+  same global batch.
 
 * ``FaultTolerantRunner`` — wraps a train loop with (i) auto-resume from
   the newest checkpoint, (ii) periodic async saves, (iii) a failure hook:
@@ -50,6 +53,28 @@ class StragglerMonitor:
                 "straggle_steps": [s for s, _ in self.straggles[-8:]]}
 
 
+def remesh_shape(n_live: int, min_model_parallel: int = 1) -> Tuple[int, int]:
+    """(data, model) of :func:`elastic_remesh` over ``n_live`` ranks: the
+    model axis steps down from ``min_model_parallel`` until it divides."""
+    mp = min_model_parallel
+    while n_live % mp:
+        mp -= 1
+    return n_live // mp, mp
+
+
+def elastic_remesh(min_model_parallel: int = 1, device: str = "cuda"):
+    """Build the largest (data, model) mesh the *currently live* ranks of
+    the default group support (a world-1 group is made when none exists)
+    -- after losing a host, training resumes on fewer ranks with the same
+    global batch (per-rank batch grows).  The mesh is on the card unless
+    the caller names ``device="cpu"``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import ensure_group, make_mesh
+    ensure_group(device)
+    return make_mesh(remesh_shape(dist.get_world_size(), min_model_parallel),
+                     ("data", "model"), device=device)
+
+
 @dataclasses.dataclass
 class RunReport:
     steps_run: int
@@ -61,8 +86,10 @@ class RunReport:
 
 class FaultTolerantRunner:
     def __init__(self, ckpt_dir: str, *, save_every: int = 50, keep: int = 3,
-                 max_recoveries: int = 3):
-        self.ckpt = CheckpointManager(ckpt_dir, keep=keep, every=save_every)
+                 max_recoveries: int = 3,
+                 ckpt: Optional[CheckpointManager] = None):
+        self.ckpt = ckpt or CheckpointManager(ckpt_dir, keep=keep,
+                                              every=save_every)
         self.monitor = StragglerMonitor()
         self.max_recoveries = max_recoveries
 

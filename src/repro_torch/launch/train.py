@@ -12,16 +12,28 @@ never a fallback) or, when asked, ``--device cpu``.  Weights are random,
 drawn on the device from seed 0; batches come from the seeded synthetic
 stream of ``repro_torch.data``.
 
+``--model-parallel k`` runs the reference's sharded flow: the host mesh
+(``launch.mesh.make_host_mesh``), its rules, and each step under
+``use_rules``.  Under ``torchrun`` every rank draws the same state from
+the seed and keeps its shard of it (parameters by ``param_specs``, moments
+by the ZeRO-1 ``opt_state_specs``), builds the same global batch from the
+stream and keeps its rows; rank 0 prints and writes the checkpoints, from
+the full tensors, and a resume re-places them
+(``ckpt.checkpoint.ShardedCheckpointManager``).  On one process the mesh
+is (1, 1), every spec replicates, and the run is the unsharded one: plain
+tensors, no rules entered.
+
 Besides the reference's ``[train]`` lines it prints one JSON line: the
 device, each step's milliseconds (the step and a sync; the first includes
 the warm-up), their median from the second step on, tokens/s at that
 median, the device's peak allocated bytes, the step's FLOPs
-(:func:`train_flops`), the final snapshot's bytes and seconds, and the last
-metrics.
+(:func:`train_flops`), the final snapshot's bytes and seconds, the last
+metrics, and the launches of each hand-written kernel over the run.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -32,9 +44,13 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.registry import ARCHS, get_config, reduced_config
 from repro_torch.core.columnar import resolve_device
-from repro_torch.ckpt.checkpoint import latest_step
+from repro_torch.ckpt.checkpoint import ShardedCheckpointManager, latest_step
 from repro_torch.data.pipeline import DataConfig, ShardedTokenPipeline
+from repro_torch.dist import sharding as shd
 from repro_torch.ft.manager import FaultTolerantRunner
+from repro_torch.launch import kernel_launches, reset_kernel_launches
+from repro_torch.launch.cells import state_shardings
+from repro_torch.launch.mesh import make_host_mesh, owned_group
 from repro_torch.models.inputs import _text_len
 from repro_torch.models.transformer import layer_windows
 from repro_torch.train import steps as steps_mod
@@ -89,22 +105,35 @@ def main(argv=None) -> int:
                     choices=["none", "bf16", "int8_ef"])
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                    help="parameter and compute dtype (default: the "
+                         "config's)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise SystemExit(
-            f"--model-parallel {args.model_parallel}: the sharded training "
-            "path waits for the port of dist/ (dist/sharding.py, "
-            "launch/mesh.py); this driver runs on one device only")
     dev = resolve_device(args.device)
+    with owned_group(dev):
+        return _train(args, dev)
 
+
+def _train(args, dev) -> int:
+    import torch.distributed as dist
     cfg = (reduced_config(args.arch) if args.preset == "smoke"
            else get_config(args.arch))
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
+                                  compute_dtype=args.dtype)
     tc = TrainConfig(total_steps=args.steps, warmup_steps=max(args.steps // 10, 1),
                      microbatches=args.microbatches, remat=args.remat,
                      grad_compression=args.grad_compression)
-    print(f"[train] arch={args.arch} preset={args.preset} "
-          f"params={cfg.param_count()/1e6:.1f}M "
-          f"mesh={ {'data': 1, 'model': 1} }", flush=True)
+    mesh = make_host_mesh(args.model_parallel, device=dev.type)
+    rules = shd.make_rules(cfg, mesh)
+    pmesh = shd.rules_mesh(mesh, rules)
+    lead = dist.get_rank() == 0
+    sharded = any(rules.values())
+    reset_kernel_launches()
+    if lead:
+        print(f"[train] arch={args.arch} preset={args.preset} "
+              f"params={cfg.param_count()/1e6:.1f}M "
+              f"mesh={shd.mesh_axes(mesh)}", flush=True)
 
     data = ShardedTokenPipeline(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
@@ -112,17 +141,28 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     state = steps_mod.init_train_state(gen, cfg, device=dev)
+    if sharded:
+        st_sh = state_shardings(cfg, pmesh, state, zero1=tc.zero1)
+        state = shd.distribute(state, pmesh, st_sh)
     step_fn = steps_mod.make_train_step(cfg, tc)
-    step_ms = []
+    step_ms, losses = [], []
     last_end = [time.perf_counter()]
 
     def run_step(state, batch):
         t0 = time.perf_counter()
-        out = step_fn(state, batch)
+        if sharded:
+            with shd.use_rules(pmesh, rules):
+                state, metrics = step_fn(state, batch)
+                # the new state as the old one is placed
+                state = shd.distribute(state, pmesh, st_sh)
+            metrics = shd.gather(metrics)
+        else:
+            state, metrics = step_fn(state, batch)
         _sync(dev)
         last_end[0] = time.perf_counter()
         step_ms.append((last_end[0] - t0) * 1e3)
-        return out
+        losses.append(metrics["loss"])
+        return state, metrics
 
     def batch_at(step: int):
         b = data.batch_at(step)
@@ -138,16 +178,26 @@ def main(argv=None) -> int:
             out["prefix_embeds"] = torch.zeros(
                 (args.batch, args.seq_len - St, cfg.d_model),
                 dtype=torch.bfloat16, device=dev)
+        if sharded:
+            out = shd.distribute(out, pmesh, shd.named(
+                pmesh, shd.batch_input_shardings(pmesh, out, rules)))
         return out
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    runner = FaultTolerantRunner(args.ckpt_dir, save_every=args.save_every)
+    ckpt = (ShardedCheckpointManager(args.ckpt_dir, pmesh,
+                                     every=args.save_every)
+            if sharded else None)
+    runner = FaultTolerantRunner(args.ckpt_dir, save_every=args.save_every,
+                                 ckpt=ckpt)
     t0 = time.perf_counter()
     state, report = runner.run(state, args.steps, run_step, batch_at,
-                               log_every=args.log_every, fail_at=args.fail_at)
+                               log_every=args.log_every if lead else 0,
+                               fail_at=args.fail_at)
     t_end = time.perf_counter()
     dt = t_end - t0
+    if not lead:
+        return 0
     final = latest_step(args.ckpt_dir)
     ckpt = pathlib.Path(args.ckpt_dir) / f"{final}.npz"
     median = statistics.median(step_ms[1:] or step_ms) if step_ms else None
@@ -157,13 +207,15 @@ def main(argv=None) -> int:
                    else "cpu"),
         "arch": args.arch, "preset": args.preset, "batch": args.batch,
         "seq_len": args.seq_len, "remat": args.remat,
+        "losses": [float(loss) for loss in losses],
         "param_count": cfg.param_count(), "step_ms": step_ms,
         "median_step_ms": median,
         "tokens_per_s": (args.batch * args.seq_len / (median / 1e3)
                          if median else None),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
-        "flops_per_step": flops,
+        "flops_per_step": flops, "mesh": shd.mesh_axes(mesh),
+        "kernel_launches": kernel_launches(),
         "ckpt_step": final, "ckpt_bytes": ckpt.stat().st_size,
         "ckpt_s": t_end - last_end[0],
         "final_metrics": report.final_metrics}), flush=True)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import batch_full, is_dtensor, shard
 from repro_torch.models.layers import apply_rope, const, dense, einsum
 
 NEG_INF = -1e30
@@ -59,11 +60,16 @@ def qkv_proj(params, cfg: ModelConfig, x, positions=None, rope: bool = True):
     if rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
 def out_proj(params, attn_out):
-    return einsum("bshk,hkd->bsd", attn_out, params["wo"])
+    out = einsum("bshk,hkd->bsd", attn_out, params["wo"])
+    out = shard(out, "batch", "seq", "embed_out")   # identity unless decode
+    return shard(out, "batch", "seq", "embed")
 
 
 # ------------------------------------------------------- chunked flash
@@ -105,9 +111,9 @@ def _flash_fwd(causal, block, softcap, q, k, v, window, q_offset, kv_len):
     q_pos = q_offset + torch.arange(Sq, dtype=torch.float32, device=dev)
     skv_bound = float(Skv + Sq + 1)
 
-    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=acc_t, device=dev)
-    l = torch.zeros((B, Hkv, G, Sq), dtype=acc_t, device=dev)
-    acc = torch.zeros((B, Hkv, G, Sq, dh), dtype=acc_t, device=dev)
+    m = batch_full(q, (B, Hkv, G, Sq), NEG_INF, acc_t)
+    l = batch_full(q, (B, Hkv, G, Sq), 0.0, acc_t)
+    acc = batch_full(q, (B, Hkv, G, Sq, dh), 0.0, acc_t)
     for i in range(nblk):
         kblk = k[:, i * block:(i + 1) * block]
         vblk = v[:, i * block:(i + 1) * block]
@@ -158,7 +164,7 @@ def _flash_bwd(causal, block, q, k, v, out, lse, dout, window, q_offset,
     q_pos = q_offset + torch.arange(Sq, dtype=torch.float32, device=dev)
     skv_bound = float(Skv + Sq + 1)
 
-    dq = torch.zeros((B, Sq, Hkv, G, dh), dtype=acc_t, device=dev)
+    dq = batch_full(q, (B, Sq, Hkv, G, dh), 0.0, acc_t)
     dks, dvs = [], []
     for i in range(nblk):
         kblk = k[:, i * block:(i + 1) * block].to(acc_t)
@@ -219,8 +225,29 @@ def flash_attention_jnp(q, k, v, *, causal: bool, window=0, q_offset=0,
         window = window.float()
     if torch.is_tensor(kv_len):
         kv_len = kv_len.float()
-    return _Flash.apply(q, k, v, causal, block, float(softcap), window,
-                        q_offset, Skv if kv_len is None else kv_len)
+    return per_shard(lambda q, k, v: _Flash.apply(
+        q, k, v, causal, block, float(softcap), window, q_offset,
+        Skv if kv_len is None else kv_len), q, k, v)
+
+
+def per_shard(fn, q, k, v):
+    """``fn(q, k, v)``; on DTensors split alike on the batch (dim 0) and the
+    heads (dim 2) only, ``fn`` runs on each device's rows and heads and
+    its output takes q's placements.  Attention is independent per row
+    and head, and a contiguous head split keeps the GQA groups whole, so
+    each device computes its own part, as a partitioned XLA program does;
+    DTensor's own batched products would have to merge the two split dims
+    into one, which some of its versions refuse."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import DTensor
+    pl = tuple(q.placements)
+    local = all(p.is_replicate() or (p.is_shard() and p.dim in (0, 2))
+                for p in pl)
+    if not (local and tuple(k.placements) == pl == tuple(v.placements)):
+        return fn(q, k, v)
+    out = fn(q.to_local(), k.to_local(), v.to_local())
+    return DTensor.from_local(out, q.device_mesh, pl, run_check=False)
 
 
 def flash_attention_banded(q, k, v, *, window: int, block: int = 1024,

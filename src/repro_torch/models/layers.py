@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -189,5 +190,7 @@ def swiglu(params, x):
     g = einsum("bsd,df->bsf", x, params["w_gate"])
     u = einsum("bsd,df->bsf", x, params["w_up"])
     h = silu(g.float()).to(x.dtype) * u
-    return einsum("bsf,fd->bsd", h, params["w_down"])
+    h = shard(h, "batch", "seq", "dff")
+    out = einsum("bsf,fd->bsd", h, params["w_down"])
+    return shard(out, "batch", "seq", "embed")
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import batch_full, shard
 from repro_torch.models.layers import dense, einsum, silu, swiglu_layout
 
 
@@ -60,18 +61,21 @@ def _router(params, cfg: ModelConfig, x):
         gate_vals.sum(-1, keepdim=True), 1e-9)
     # Switch-style load-balancing loss
     me = probs.mean(dim=(0, 1))                             # (E,)
-    ce = torch.bincount(idx.reshape(-1), minlength=e.n_experts).float() \
-        / idx.numel()
+    flat = idx.reshape(-1)                                  # .at[idx].add(1)
+    ce = torch.zeros(e.n_experts, device=idx.device).scatter_add(
+        0, flat, torch.ones_like(flat, dtype=torch.float32)) / idx.numel()
     aux = e.n_experts * torch.sum(me * ce)
     return gate_vals, idx, aux
 
 
 def _expert_ffn(params, h):
     """h: (G, E, C, d) with E contracted against (E, d, f)."""
+    h = shard(h, "batch", "expert", "cap", "embed")
     g = einsum("gecd,edf->gecf", h, params["w_gate"])
     u = einsum("gecd,edf->gecf", h, params["w_up"])
     a = silu(g.float()).to(h.dtype) * u
-    return einsum("gecf,efd->gecd", a, params["w_down"])
+    out = einsum("gecf,efd->gecd", a, params["w_down"])
+    return shard(out, "batch", "expert", "cap", "embed")
 
 
 # ------------------------------------------------------------- einsum impl
@@ -80,8 +84,7 @@ def _moe_einsum(params, cfg: ModelConfig, x):
     e = cfg.moe
     C = _capacity(cfg, S)
     gates, idx, aux = _router(params, cfg, x)
-    combine = torch.zeros((G, S, e.n_experts, C), dtype=torch.float32,
-                          device=x.device)
+    combine = batch_full(x, (G, S, e.n_experts, C), 0.0, torch.float32)
     for ki in range(e.top_k):
         oh = _one_hot(idx[..., ki], e.n_experts)                  # (G,S,E)
         pos = (torch.cumsum(oh, dim=1) - 1.0) * oh                 # (G,S,E)
@@ -104,28 +107,31 @@ def _moe_gather(params, cfg: ModelConfig, x):
     dev = x.device
     gates, idx, aux = _router(params, cfg, x)
 
+    # every scatter and gather below stays within a group (batch row), so
+    # a batch-split step runs it on its own rows only
     eid = idx.reshape(G, S * k)                      # expert per slot
-    tok = torch.arange(S, device=dev).repeat_interleave(k)  # token per slot
     order = torch.sort(eid, dim=-1, stable=True).indices
     eid_s = torch.gather(eid, 1, order)
-    tok_s = tok[order]
+    tok_s = torch.div(order, k, rounding_mode="floor")  # token per slot
     gat_s = torch.gather(gates.reshape(G, S * k), 1, order)
-    # position within expert = rank - first-rank-of-expert
-    first = torch.searchsorted(
-        eid_s, torch.arange(e.n_experts, device=dev).expand(G, -1).contiguous(),
-        side="left")
+    # position within expert = rank - first-rank-of-expert; the first rank
+    # is the left searchsorted of each expert id in the sorted ids, i.e.
+    # the count of smaller ids (an exclusive cumsum of per-expert counts)
+    counts = batch_full(eid, (G, e.n_experts), 0, eid.dtype).scatter_add(
+        1, eid, torch.ones_like(eid))
+    first = torch.cumsum(counts, dim=1) - counts
     slot = torch.arange(S * k, device=dev) - torch.gather(first, 1, eid_s)
     keep = slot < C
-    slot_c = torch.clamp(slot, 0, C - 1)
-    g_idx = torch.arange(G, device=dev)[:, None].expand(G, S * k)
+    row = eid_s * C + torch.clamp(slot, 0, C - 1)    # (expert, slot) of buf
+    rows = row[..., None].expand(G, S * k, d)
     xs = torch.gather(x, 1, tok_s[..., None].expand(G, S * k, d))
-    buf = torch.zeros((G, e.n_experts, C, d), dtype=x.dtype, device=dev)
-    buf.index_put_((g_idx, eid_s, slot_c),
-                   torch.where(keep[..., None], xs, 0), accumulate=True)
-    out = _expert_ffn(params, buf)                   # (G,E,C,d)
-    vals = out[g_idx, eid_s, slot_c] * (gat_s * keep).to(out.dtype)[..., None]
-    y = torch.zeros((G, S, d), dtype=out.dtype, device=dev)
-    y.index_put_((g_idx, tok_s), vals, accumulate=True)
+    buf = batch_full(x, (G, e.n_experts * C, d), 0.0, x.dtype).scatter_add(
+        1, rows, torch.where(keep[..., None], xs, 0))
+    out = _expert_ffn(params, buf.reshape(G, e.n_experts, C, d))
+    vals = torch.gather(out.reshape(G, e.n_experts * C, d), 1, rows) \
+        * (gat_s * keep).to(out.dtype)[..., None]
+    y = batch_full(x, (G, S, d), 0.0, out.dtype).scatter_add(
+        1, tok_s[..., None].expand(G, S * k, d), vals)
     return y, aux
 
 

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import batch_full
 from repro_torch.models.layers import const, dense, einsum, silu, softplus
 
 NEG_INF = -1e30
@@ -77,12 +78,14 @@ def mlstm_layout(cfg: ModelConfig):
     }
 
 
-def mlstm_init_state(batch: int, H: int, dh: int, device=None):
-    f32 = dict(dtype=torch.float32, device=device)
+def mlstm_init_state(batch: int, H: int, dh: int, ref):
+    """Zero state for ``batch`` rows, on ``ref``'s device and split on the
+    batch as ``ref`` (batch first) is."""
+    f32 = torch.float32
     return {
-        "C": torch.zeros((batch, H, dh, dh), **f32),
-        "n": torch.zeros((batch, H, dh), **f32),
-        "m": torch.full((batch, H), NEG_INF, **f32),
+        "C": batch_full(ref, (batch, H, dh, dh), 0.0, f32),
+        "n": batch_full(ref, (batch, H, dh), 0.0, f32),
+        "m": batch_full(ref, (batch, H), NEG_INF, f32),
     }
 
 
@@ -140,7 +143,7 @@ def mlstm_sequence(q, k, v, i_raw, f_raw, state=None, chunk: int = 128):
     """q/k/v: (B,S,H,dh); i_raw/f_raw: (B,S,H). Returns (h, final_state)."""
     B, S, H, dh = q.shape
     if state is None:
-        state = mlstm_init_state(B, H, dh, q.device)
+        state = mlstm_init_state(B, H, dh, q)
     li = i_raw.float()                               # log input gate
     lf = _log_sigmoid(f_raw.float())                 # log sigmoid forget gate
     K = min(chunk, S)
@@ -216,11 +219,10 @@ def slstm_layout(cfg: ModelConfig):
     }
 
 
-def slstm_init_state(batch: int, d: int, H: int, dh: int, device=None):
-    z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+def slstm_init_state(batch: int, d: int, H: int, dh: int, ref):
+    z = batch_full(ref, (batch, H, dh), 0.0, torch.float32)
     return {"h": z, "c": z, "n": z + 1e-6,
-            "m": torch.full((batch, H, dh), NEG_INF, dtype=torch.float32,
-                            device=device)}
+            "m": batch_full(ref, (batch, H, dh), NEG_INF, torch.float32)}
 
 
 def _slstm_cell(params, cfg: ModelConfig, xw, st):
@@ -246,7 +248,7 @@ def slstm_block(params, cfg: ModelConfig, x, state=None, decode: bool = False):
     B, S, d = x.shape
     H, dh = cfg.ssm.n_heads, cfg.ssm.head_dim
     if state is None:
-        state = slstm_init_state(B, d, H, dh, x.device)
+        state = slstm_init_state(B, d, H, dh, x)
     xw = einsum("bsd,de->bse", x.float(), params["w_gates"])     # (B,S,4d)
     hs = []
     for t in range(1 if decode else S):
@@ -277,12 +279,12 @@ def mamba_layout(cfg: ModelConfig):
     }
 
 
-def mamba_init_state(batch: int, cfg: ModelConfig, device=None):
+def mamba_init_state(batch: int, cfg: ModelConfig, ref):
     H, dh, N = cfg.ssm.n_heads, cfg.ssm.head_dim, cfg.ssm.d_state
-    f32 = dict(dtype=torch.float32, device=device)
     return {
-        "ssm": torch.zeros((batch, H, dh, N), **f32),
-        "conv": torch.zeros((batch, cfg.ssm.conv_dim - 1, H * dh), **f32),
+        "ssm": batch_full(ref, (batch, H, dh, N), 0.0, torch.float32),
+        "conv": batch_full(ref, (batch, cfg.ssm.conv_dim - 1, H * dh), 0.0,
+                           torch.float32),
     }
 
 
@@ -290,8 +292,8 @@ def _causal_conv(params, cfg: ModelConfig, xc, conv_state=None):
     """Depthwise causal conv over (B,S,di); returns (y, new_tail_state)."""
     K = cfg.ssm.conv_dim
     if conv_state is None:
-        pad = torch.zeros((xc.shape[0], K - 1, xc.shape[2]), dtype=xc.dtype,
-                          device=xc.device)
+        pad = batch_full(xc, (xc.shape[0], K - 1, xc.shape[2]), 0.0,
+                         xc.dtype)
     else:
         pad = conv_state.to(xc.dtype)
     xp = torch.cat([pad, xc], dim=1)                  # (B, S+K-1, di)
@@ -345,7 +347,7 @@ def mamba_block(params, cfg: ModelConfig, x, state=None, decode: bool = False):
     H, dh, N = cfg.ssm.n_heads, cfg.ssm.head_dim, cfg.ssm.d_state
     di = H * dh
     if state is None:
-        state = mamba_init_state(B, cfg, x.device)
+        state = mamba_init_state(B, cfg, x)
     u = einsum("bsd,de->bse", x, params["w_in"])
     xc, z = u[..., :di], u[..., di:]
     xc, conv_state = _causal_conv(params, cfg, xc, state["conv"])

@@ -24,6 +24,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (batch_full, is_dtensor,
+                                       reduce_partial, shard, unshard_dim)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -123,11 +125,12 @@ def unstack(tree, n: int) -> List[Any]:
     """A layer-stacked tree as ``n`` per-layer trees of views.  Each leaf
     is split by one ``unbind``, whose gradient stacks the layers' gradients
     in one op (indexing it per layer would add ``n`` zero-padded copies of
-    the whole leaf)."""
+    the whole leaf).  A leaf sharded on the layer axis is gathered on it
+    first, as a scan over a sharded axis does."""
     def split(node):
         if isinstance(node, dict):
             return {k: split(v) for k, v in node.items()}
-        return node.unbind(0)
+        return unshard_dim(node, 0).unbind(0)
 
     def take(node, i):
         if isinstance(node, dict):
@@ -189,24 +192,40 @@ def _hymba_mixer(lp, cfg: ModelConfig, h, positions, window, cache=None,
 # ======================================================================
 # Full-sequence forward (prefill)
 # ======================================================================
+def _embed(params, cfg: ModelConfig, tokens):
+    table = params["embed"]
+    if is_dtensor(table):
+        # the same rows; its gradient is DTensor's embedding backward, as
+        # some DTensor versions cannot split the index gradient's scatter.
+        # A vocab-split table gives rows pending a masked sum, done here
+        # once (its mask is read once)
+        rows = reduce_partial(torch.nn.functional.embedding(tokens, table))
+    else:
+        rows = table[tokens]
+    return shard(rows, "batch", "seq", "embed")
+
+
 def _unembed(params, cfg: ModelConfig, x):
     x = apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return einsum("bsd,dv->bsv", x, head)
+    logits = einsum("bsd,dv->bsv", x, head)
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _kv_cache(kvs, cache_len: int):
     """Per-layer (k, v) of length S as the stacked cache (L, B, max(S,
     cache_len), Hkv, dh), zero past S (the reference pads)."""
-    k0 = kvs[0][0]
-    B, S, Hkv, dh = k0.shape
-    shape = (len(kvs), B, max(S, cache_len), Hkv, dh)
-    ck = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
-    cv = torch.zeros(shape, dtype=kvs[0][1].dtype, device=k0.device)
-    for i, (k, v) in enumerate(kvs):
-        ck[i, :, :S] = k
-        cv[i, :, :S] = v
-    return ck, cv
+    B, S, Hkv, dh = kvs[0][0].shape
+    pad = max(S, cache_len) - S
+
+    def stacked(ts):
+        out = torch.stack(ts)
+        if not pad:
+            return out
+        zeros = batch_full(out, (len(ts), B, pad, Hkv, dh), 0.0, out.dtype,
+                           batch_dim=1, ref_batch_dim=1)
+        return torch.cat([out, zeros], dim=2)
+    return (stacked([k for k, _ in kvs]), stacked([v for _, v in kvs]))
 
 
 def _stack_states(states):
@@ -252,7 +271,7 @@ def forward_full(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     xLSTM pair, a period of gemma3's pattern) as ``_maybe_remat`` does.
     """
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens)
     if cfg.family == "vlm" and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -438,7 +457,7 @@ def _copy_state(dst, src):
 def forward_decode(params, cfg: ModelConfig, token, cache, cur_pos: int):
     """token: (B, 1) int; cur_pos: the new token's position.  Returns
     (logits, cache), the cache updated in place."""
-    x = params["embed"][token]
+    x = _embed(params, cfg, token)
     if cfg.family == "ssm":
         ml, sl = cache["mlstm"], cache["slstm"]
         for i, lp in enumerate(unstack(params["layers"], cfg.n_layers // 2)):

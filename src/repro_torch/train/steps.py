@@ -16,6 +16,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.dist.sharding import unshard_dim
 from repro_torch.models.transformer import (forward_decode, forward_full,
                                             init_params, lm_loss)
 from repro_torch.optim import adamw, compression
@@ -90,11 +91,19 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     return train_step
 
 
+def _whole_vocab(logits):
+    """The last position's logits with the vocab dim gathered where a mesh
+    splits it (DTensor's argmax over a split dim fails on a one-row
+    shard), so the greedy pick reads every logit."""
+    return unshard_dim(logits, logits.ndim - 1)
+
+
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
     def prefill_step(params, batch):
         logits, _, cache = forward_full(params, cfg, batch, collect_cache=True,
                                         cache_len=cache_len)
-        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        next_tok = torch.argmax(_whole_vocab(logits[:, -1:]),
+                                dim=-1).to(torch.int32)
         return next_tok, cache
 
     return prefill_step
@@ -103,7 +112,7 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 def make_decode_step(cfg: ModelConfig):
     def decode_step(params, token, cache, cur_pos: int):
         logits, cache = forward_decode(params, cfg, token, cache, cur_pos)
-        next_tok = torch.argmax(logits[:, -1], dim=-1,
+        next_tok = torch.argmax(_whole_vocab(logits[:, -1]), dim=-1,
                                 keepdim=True).to(torch.int32)
         return next_tok, cache
 

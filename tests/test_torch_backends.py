@@ -339,6 +339,36 @@ def test_backends_pickle_roundtrip():
     assert pickle.loads(pickle.dumps(sel)) == sel
 
 
+def test_backend_versions_and_warm_equal_reference():
+    """``version`` stamps each backend's store entries: the protocol's is
+    0, the CiM backend's the trace VM's, the TPU backend's its analysis
+    version -- the reference's numbers.  ``warm`` builds the layer-1
+    artifact of one point, as the reference's does."""
+    from repro.dse.backends import AnalysisBackend as RefBase
+    from repro_torch.dse.backends import AnalysisBackend
+    assert AnalysisBackend.version.fget(None) == RefBase.version.fget(None) == 0
+    assert port.CimBackend().version == ref.CimBackend().version == 2
+    assert port.TpuBackend().version == ref.TpuBackend().version
+    from repro_torch.core.sampling import SamplingSpec
+    assert port.CimBackend(sampling=SamplingSpec(
+        mode="stratified")).version == 2
+    assert callable(AnalysisBackend.warm) and callable(RefBase.warm)
+    cache = port.AnalysisCache(device="cpu")
+    (point,) = port.SweepSpace(workloads=("NB",)).points()
+    port.CimBackend().warm(cache, point)
+    assert cache.stats()["trace_builds"] == 1
+    port.CimBackend().warm(cache, point)
+    assert cache.stats()["trace_hits"] == 1
+
+
+def test_core_exports_cover_the_reference():
+    import repro.core as ref_core
+    import repro_torch.core as port_core
+    assert set(ref_core.__all__) <= set(port_core.__all__)
+    for name in ref_core.__all__:
+        assert getattr(port_core, name) is not None, name
+
+
 # ------------------------------------------- the reference's analyses
 def _ref_analysis(d):
     return ref_backends.TpuWorkloadAnalysis(**dict(
@@ -386,6 +416,8 @@ def test_layers_2_and_3_equal_reference_on_its_analyses():
     front = [r.to_dict() for r in got.pareto(OBJECTIVES)]
     assert front == [r.to_dict() for r in want.pareto(OBJECTIVES)]
     assert front == doc["grid"]["pareto"]
+    # the header's wall seconds are each run's own clock, not a result
+    got.elapsed_s = want.elapsed_s
     assert got.to_markdown(pareto_objectives=OBJECTIVES) == \
         want.to_markdown(pareto_objectives=OBJECTIVES)
 

@@ -209,7 +209,7 @@ def test_runner_lists_artifacts_and_rejects_unknown_names(capsys):
               capsys.readouterr().out.strip().splitlines()]
     assert listed == ["table3", "table5", "fig12", "fig13", "table6",
                       "fig14", "fig15", "fig16", "fig17", "fig_adaptive",
-                      "tpu_macr", "fig_tpu_dse"]
+                      "tpu_macr", "fig_tpu_dse", "roofline"]
     assert port_run.main(["--device", "cpu", "fig99"]) == 1
     assert "unknown benchmark 'fig99'" in capsys.readouterr().out
 

@@ -421,9 +421,22 @@ def test_serve_cli_runs_on_the_cpu_when_asked():
     assert lines[1].startswith("[serve] sample tokens: [")
 
 
-def test_serve_cli_refuses_model_parallel():
-    with pytest.raises(SystemExit, match="dist/"):
-        serve.main(["--device", "cpu", "--model-parallel", "2"])
+def test_serve_cli_refuses_model_parallel(capsys):
+    """``--model-parallel 2`` is no longer refused: one process runs it on
+    the reference's host mesh, (1, 1) over one rank, as the reference does
+    on one jax device, and serves the tokens of ``--model-parallel 1``."""
+    args = ["--device", "cpu", "--gen", "4", "--prompt-len", "16"]
+    docs = []
+    for mp in ("1", "2"):
+        assert serve.main(args + ["--model-parallel", mp]) == 0
+        out = capsys.readouterr().out
+        docs.append(json.loads(next(line for line in out.splitlines()
+                                    if line.startswith("{"))))
+    assert docs[1]["mesh"] == {"data": 1, "model": 1}
+    assert docs[1]["tokens"] == docs[0]["tokens"]
+    for doc in docs:               # the model path reaches no kernel
+        assert doc["kernel_launches"] and not any(
+            doc["kernel_launches"].values())
 
 
 # ------------------------------------------------------------ regenerate

@@ -416,6 +416,46 @@ def test_closed_over_constants_are_stored_after_the_inputs():
     assert int(got.columns.addr.max()) >= 0x1000 + 64 + 4 * 4
 
 
+@pytest.mark.parametrize("draw", ["randint", "rand"])
+def test_random_draw_is_a_zero_immediate_like_the_reference(draw):
+    """A random draw followed by arithmetic: the reference prices
+    ``random_seed``/``_unwrap``/``_wrap``/``_bits`` as a zero-data value
+    that emits nothing, and the port its ATen draws (``randint`` /
+    ``rand`` with an explicit generator) the same way, so the columns and
+    outputs are ``==`` (the VM computes on zeros where the program drew)."""
+    if draw == "randint":
+        x = np.arange(8, dtype=np.int32) - 3
+
+        def jax_fn(v):
+            bits = jax.random.bits(jax.random.PRNGKey(3), v.shape, jnp.uint32)
+            return v * 2 + bits.astype(jnp.int32)
+
+        def torch_fn(v):
+            g = torch.Generator().manual_seed(3)
+            return v * 2 + torch.randint(-2 ** 31, 2 ** 31, v.shape,
+                                         dtype=torch.int32, generator=g)
+    else:
+        x = FX
+
+        def jax_fn(v):
+            bits = jax.random.bits(jax.random.PRNGKey(3), v.shape, jnp.uint32)
+            return v * 2 + bits.astype(jnp.float32)
+
+        def torch_fn(v):
+            g = torch.Generator().manual_seed(3)
+            return v * 2 + torch.rand(v.shape, generator=g)
+    ref = rtrace.trace_structural(jax_fn, jnp.asarray(x))
+    got = trace_structural(torch_fn, torch.from_numpy(x.copy()), device="cpu")
+    want, have = ref.columns.to_arrays(), got.columns.to_arrays()
+    assert sorted(want) == sorted(have)
+    for k in want:
+        np.testing.assert_array_equal(have[k], want[k], err_msg=k)
+    assert got.n_instructions == ref.n_instructions > 0
+    np.testing.assert_array_equal(got.outputs[0].numpy(),
+                                  np.asarray(ref.outputs[0]))
+    np.testing.assert_array_equal(got.outputs[0].numpy(), x * 2)
+
+
 # ---------------------------------------------------------- control flow
 def test_scan_matches_reference():
     def f(x, xs):

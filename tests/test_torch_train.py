@@ -297,9 +297,23 @@ def test_train_flops_count():
     assert train_cli.train_flops(cfg, 4, 1024) == want
 
 
-def test_train_cli_refuses_model_parallel():
-    with pytest.raises(SystemExit, match="dist/"):
-        train_cli.main(["--device", "cpu", "--model-parallel", "2"])
+def test_train_cli_refuses_model_parallel(tmp_path, capsys):
+    """``--model-parallel 2`` is no longer refused: one process runs it on
+    the reference's host mesh, (1, 1) over one rank, as the reference does
+    on one jax device, with the losses of ``--model-parallel 1``."""
+    losses = []
+    for mp in ("1", "2"):
+        assert train_cli.main(["--device", "cpu", "--steps", "3", "--batch",
+                               "2", "--seq-len", "16", "--model-parallel",
+                               mp, "--ckpt-dir", str(tmp_path / mp)]) == 0
+        out = capsys.readouterr().out
+        assert "mesh={'data': 1, 'model': 1}" in out
+        doc = json.loads(next(line for line in out.splitlines()
+                              if line.startswith("{")))
+        assert doc["kernel_launches"] and not any(
+            doc["kernel_launches"].values())
+        losses.append(doc["losses"])
+    assert losses[1] == losses[0] and len(losses[0]) == 3
 
 
 # ------------------------------------------------------------ regenerate
