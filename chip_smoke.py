@@ -214,7 +214,12 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   on the card gives (1, 1); no launch of K1-K8, summed
                   over the counts each dry-run and driver process reports
                   for its own run;
-  15. result   -- the kernel table as one JSON line, the nvidia-smi line,
+  15. lint     -- ``python -m repro_torch.lint --check-manifest`` (the
+                  port's four stdlib-only checkers; no kernel) in a process
+                  of its own under this interpreter with torch blocked: the
+                  interpreter's version, the five layers' fingerprint rows
+                  (each ``ok``, none ``DRIFT``), exit 0, its seconds;
+  16. result   -- the kernel table as one JSON line, the nvidia-smi line,
                   and ``{"ok": true, ...}`` as the last line.
 
 Any mismatch, a kernel that its path never launched, or an exception
@@ -2531,6 +2536,42 @@ def sharded_phase(dev, smi):
                 phase_s=phase_s, failures=failures)
 
 
+_LINT_RUN = r"""
+import runpy, sys
+sys.modules["torch"] = None          # the lint must run without torch
+print("interpreter", sys.version.split()[0], flush=True)
+sys.argv = ["repro_torch.lint", "--check-manifest"]
+runpy.run_module("repro_torch.lint", run_name="__main__", alter_sys=True)
+"""
+
+
+def lint_phase(smi):
+    """Phase 15: ``python -m repro_torch.lint --check-manifest`` in a
+    process of its own under this interpreter, ``torch`` blocked.  It must
+    exit 0 with one ``ok`` row per fingerprinted layer and no ``DRIFT``.
+    Returns the summary for the detail file (``failures`` lists misses)."""
+    t_phase = time.perf_counter()
+    rc, out, err = _finish(_popen(["-c", _LINT_RUN]), 300)
+    phase_s = time.perf_counter() - t_phase
+    lines = out.splitlines()
+    version = next((line.split()[1] for line in lines
+                    if line.startswith("interpreter ")), None)
+    rows = [line.split() for line in lines if line.startswith("  ")]
+    print(f"lint: interpreter {version}", flush=True)
+    for row in rows:
+        print("  " + " ".join(row), flush=True)
+    failures = []
+    if rc != 0:
+        failures.append(f"lint: exit {rc}: {err.strip()[-2000:]}")
+    if len(rows) != 5 or any(row[-1] != "ok" for row in rows):
+        failures.append(f"lint: layer rows {rows} (five, each ok)")
+    print(f"lint: exit {rc}, {phase_s:.3f} s (one process, torch blocked) "
+          f"on the host of {torch.cuda.get_device_name(0)} ({smi})",
+          flush=True)
+    return dict(interpreter=version, rows=[" ".join(r) for r in rows],
+                exit=rc, phase_s=phase_s, failures=failures)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -3099,7 +3140,16 @@ def main():
             print("MISMATCH", f)
         fail(f"{len(sharded['failures'])} failures in the sharded-path phase")
 
-    # --------------------------------------------------------- 15. result
+    # ----------------------------------------------------------- 15. lint
+    linted = lint_phase(smi)
+    detail["lint"] = linted
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    if linted["failures"]:
+        for f in linted["failures"]:
+            print("MISMATCH", f)
+        fail(f"{len(linted['failures'])} failures in the lint phase")
+
+    # --------------------------------------------------------- 16. result
     table = []
     for name in (*accel.KERNELS, *cim_launches):
         k = kernels[name]

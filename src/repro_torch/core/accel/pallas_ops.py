@@ -76,12 +76,14 @@ def _segment_reduce(vals, ids, n_segments: int, is_max: bool):
     raise ValueError(f"unsupported device {vals.device}")
 
 
+# lint: numpy-twin(torch.Tensor.index_add_)
 def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
                 n_segments: int) -> torch.Tensor:
     """int32 sum of ``vals`` by segment ``ids`` (``jax.ops.segment_sum``)."""
     return _segment_reduce(vals, ids, n_segments, is_max=False)
 
 
+# lint: numpy-twin(torch.Tensor.scatter_reduce_)
 def segment_max(vals: torch.Tensor, ids: torch.Tensor,
                 n_segments: int) -> torch.Tensor:
     """int32 max of ``vals`` by segment ``ids`` (``jax.ops.segment_max``);

@@ -136,6 +136,7 @@ def _launch(ct, flat, enabled, depth_cap: int, host=None) -> torch.Tensor:
     return out
 
 
+# lint: numpy-twin(repro_torch.core.accel.place:_plain, batched)
 def place_arrays(part, ct, cfg, host=None) -> torch.Tensor:
     """(target depth, moves, fills, bank) per proto: one (4, n_protos)
     int32 tensor on the trace's device.  ``part`` has at least one proto.
@@ -150,6 +151,7 @@ def place_arrays(part, ct, cfg, host=None) -> torch.Tensor:
     raise ValueError(f"unsupported device {ct.device}")
 
 
+# lint: numpy-twin(repro_torch.core.accel.place:_plain, batched)
 def placement_lists(part, ct, cfg) -> List[List[int]]:
     """:func:`place_arrays` as four lists on the host: on a CUDA trace one
     launch, one copy to pinned memory and one synchronisation."""
@@ -161,6 +163,7 @@ def placement_lists(part, ct, cfg) -> List[List[int]]:
     return host.tolist()
 
 
+# lint: numpy-twin(repro_torch.core.accel.place:_plain, batched)
 def place_candidates(part, ct, cfg) -> List:
     """``_place`` on the trace's device: the placement kernel on a CUDA
     trace, its plain version on a CPU trace."""
@@ -171,6 +174,7 @@ def place_candidates(part, ct, cfg) -> List:
     return _candidates(part.protos, *placement_lists(part, ct, cfg))
 
 
+# lint: numpy-twin(repro_torch.core.accel.place:_plain, batched)
 def place_sorted(part, ct, cfg) -> torch.Tensor:
     """:func:`place_arrays` from the segment kernels and a sort of packed
     (proto, line) keys.  Raises where a key would not fit int64: 2**22

@@ -56,6 +56,7 @@ Columns = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 _params: Dict[tuple, Tuple[torch.Tensor, int]] = {}
 
 
+# lint: numpy-twin(repro_torch.core.cache:CacheHierarchy.replay, batched)
 def replay_columns_batch(addrs: torch.Tensor, is_writes: torch.Tensor,
                          geometries: Sequence[Tuple[CacheConfig, ...]]
                          ) -> List[Columns]:
@@ -76,6 +77,7 @@ def replay_columns_batch(addrs: torch.Tensor, is_writes: torch.Tensor,
     return out
 
 
+# lint: disable=accel-parity (launches nothing: the kernel's word size)
 def word_bytes(n: int, max_line: int,
                geometries: Sequence[Tuple[CacheConfig, ...]]) -> int:
     """Bytes of the kernel's tag and LRU-stamp words for a stream of ``n``
@@ -87,6 +89,7 @@ def word_bytes(n: int, max_line: int,
                  and max_line // min_sets < _WORD32_MAX) else 8
 
 
+# lint: disable=accel-parity (launches nothing: the kernel's L1 placement)
 def first_level_shared(geometries: Sequence[Tuple[CacheConfig, ...]],
                        word: int) -> bool:
     """True when the largest first level of ``geometries``, in ``word``-byte

@@ -101,20 +101,20 @@ class AnalysisCache:
             store = AnalysisStore(store)
         self.store = store
         self._lock = threading.RLock()
-        self._structural: Dict[str, StructuralTrace] = {}
-        self._traces: Dict[Tuple, TraceResult] = {}
-        self._analyses: Dict[Tuple, TraceAnalysis] = {}
-        self._offloads: Dict[Tuple, Tuple[OffloadResult, ReshapedTrace]] = {}
-        self._blobs: Dict[Tuple, Any] = {}        # generic backend artifacts
-        self._key_locks: Dict[Tuple, threading.Lock] = {}
-        self.trace_builds = 0
-        self.trace_hits = 0
-        self.offload_builds = 0
-        self.offload_hits = 0
-        self.replay_batches = 0
+        self._structural: Dict[str, StructuralTrace] = {}  # lint: guarded-by(_lock)
+        self._traces: Dict[Tuple, TraceResult] = {}        # lint: guarded-by(_lock)
+        self._analyses: Dict[Tuple, TraceAnalysis] = {}    # lint: guarded-by(_lock)
+        self._offloads: Dict[Tuple, Tuple[OffloadResult, ReshapedTrace]] = {}  # lint: guarded-by(_lock)
+        self._blobs: Dict[Tuple, Any] = {}  # generic backend artifacts; lint: guarded-by(_lock)
+        self._key_locks: Dict[Tuple, threading.Lock] = {}  # lint: guarded-by(_lock)
+        self.trace_builds = 0    # lint: guarded-by(_lock)
+        self.trace_hits = 0      # lint: guarded-by(_lock)
+        self.offload_builds = 0  # lint: guarded-by(_lock)
+        self.offload_hits = 0    # lint: guarded-by(_lock)
+        self.replay_batches = 0  # lint: guarded-by(_lock)
         #: single-geometry replays (one K1 launch each on the card), which
         #: ``replay_batches`` does not count; not part of ``stats()``
-        self.single_replays = 0
+        self.single_replays = 0  # lint: guarded-by(_lock)
 
     def _key_lock(self, key: Tuple) -> threading.Lock:
         """Per-key build lock: concurrent misses on one key build once."""

@@ -201,7 +201,19 @@ class DSEService:
                 sp.set(source="memo")
                 return dataclasses.replace(hit, index=point.index, round=0)
 
+            source = "evaluated"
+
             def build() -> SweepRecord:
+                # another flight for this key may have finished between the
+                # memo check above and this flight's start: its record is
+                # already in the memo, and evaluating again would count a
+                # second evaluation of one key
+                nonlocal source
+                with self._memo_lock:
+                    rec = self._memo.get(key)
+                if rec is not None:
+                    source = "memo"
+                    return rec
                 rec = backend.evaluate(cache, point, host)
                 with self._memo_lock:
                     if len(self._memo) >= self.memo_limit:  # FIFO bound
@@ -213,7 +225,10 @@ class DSEService:
             rec, coalesced = self._singleflight.do(key, build)
             if coalesced:
                 self.metrics.counter("points.coalesced")
-            sp.set(source="coalesced" if coalesced else "evaluated")
+                source = "coalesced"
+            elif source == "memo":
+                self.metrics.counter("points.memo_hits")
+            sp.set(source=source)
             return dataclasses.replace(rec, index=point.index, round=0)
 
     # ------------------------------------------------------------ queries

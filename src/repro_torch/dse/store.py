@@ -184,13 +184,13 @@ class AnalysisStore:
         # counters are shared by thread-pool sweeps and asserted on exactly
         # by tests, so increments go through a lock
         self._stats_lock = threading.Lock()
-        self._usage_cache: Optional[Dict[str, int]] = None
-        self.l1_hits = 0
-        self.l1_misses = 0
-        self.l2_hits = 0
-        self.l2_misses = 0
-        self.writes = 0
-        self.corrupt_drops = 0
+        self._usage_cache: Optional[Dict[str, int]] = None  # lint: guarded-by(_stats_lock)
+        self.l1_hits = 0            # lint: guarded-by(_stats_lock)
+        self.l1_misses = 0          # lint: guarded-by(_stats_lock)
+        self.l2_hits = 0            # lint: guarded-by(_stats_lock)
+        self.l2_misses = 0          # lint: guarded-by(_stats_lock)
+        self.writes = 0             # lint: guarded-by(_stats_lock)
+        self.corrupt_drops = 0      # lint: guarded-by(_stats_lock)
 
     def _check_format_marker(self) -> None:
         """Refuse directories written by a newer STORE_FORMAT; (re)stamp

@@ -194,3 +194,11 @@ def swiglu(params, x):
     out = einsum("bsf,fd->bsd", h, params["w_down"])
     return shard(out, "batch", "seq", "embed")
 
+
+def softcap(logits, cap: float):
+    """``cap * tanh(logits / cap)``; ``logits`` unchanged without a
+    positive cap."""
+    if cap and cap > 0:
+        return torch.tanh(logits / cap) * cap
+    return logits
+

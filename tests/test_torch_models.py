@@ -131,6 +131,10 @@ def _norm_case(name, dtype):
         return (jax.jit(R_layers.apply_rope, static_argnums=2)(
                     xj, jnp.asarray(37)[None][None], 1e4),
                 P_layers.apply_rope(xt, torch.full((1, 1), 37), 1e4))
+    if name.startswith("softcap"):
+        cap = 30.0 if name == "softcap" else 0.0
+        (xj, xt) = _both(_normal(rng, 2, 7, 64, scale=40.0), dtype)
+        return (R_layers.softcap(xj, cap), P_layers.softcap(xt, cap))
     p = {"w_gate": _normal(rng, 64, 96, scale=0.125),
          "w_up": _normal(rng, 64, 96, scale=0.125),
          "w_down": _normal(rng, 96, 64, scale=0.1)}
@@ -141,7 +145,7 @@ def _norm_case(name, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["rms", "ln", "rope", "rope_decode",
-                                  "swiglu"])
+                                  "swiglu", "softcap", "softcap_off"])
 def test_norms_rope_swiglu_match_reference(name, dtype):
     want, got = _norm_case(name, dtype)
     assert str(got.dtype) == "torch." + str(want.dtype)

@@ -453,6 +453,49 @@ def test_storm_under_short_switch_interval_loses_no_point():
         pts["requested"] - pts["evaluated"]
 
 
+def test_flight_started_after_a_finished_flight_reads_the_memo():
+    """Call A misses the memo, then waits before it starts its flight;
+    call B, on the same key, evaluates and returns in that gap.  A's
+    flight must answer from the memo: one evaluation of the key, and A
+    counted as a memo hit (a second evaluation is the check-then-act race
+    the storm test trips on under a short switch interval)."""
+    service = DSEService(max_workers=1, tracing=False, device="cpu")
+    backend, cache = service._backends["cim"], service.analysis_cache("cim")
+    point = SweepSpace(workloads=("NB",), techs=("sram",)).points()[0]
+    real_do = service._singleflight.do
+    a_missed, b_returned = threading.Event(), threading.Event()
+    calls, calls_lock = [], threading.Lock()
+
+    def do(key, fn):
+        with calls_lock:
+            calls.append(key)
+            first = len(calls) == 1
+        if first:                    # call A, after its memo miss
+            a_missed.set()
+            assert b_returned.wait(timeout=120)
+        return real_do(key, fn)
+
+    service._singleflight.do = do
+    out = {}
+
+    def call_a():
+        out["a"] = service.evaluate_point(backend, cache, point, service.host)
+
+    thread = threading.Thread(target=call_a)
+    thread.start()
+    assert a_missed.wait(timeout=120)
+    out["b"] = service.evaluate_point(backend, cache, point, service.host)
+    b_returned.set()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert calls == [calls[0], calls[0]]           # one key, both flights
+    value = service.metrics.counter_value
+    assert value("points.requested") == 2
+    assert value("points.evaluated") == 1
+    assert value("points.coalesced") + value("points.memo_hits") == 1
+    assert out["a"] == out["b"]
+
+
 def test_metrics_snapshot_shape(daemon):
     _url, client, _service = daemon
     doc = client.metrics()

@@ -2,6 +2,7 @@
 inputs, the port VM's columns ``==`` the reference VM's and the committed
 fixture's, the outputs equal to eager ``fn(*args)`` and to the reference;
 twins of ``tests/test_workloads.py``; and the DSE engine tracing them."""
+import ast
 import builtins
 import hashlib
 import inspect
@@ -147,10 +148,22 @@ def test_workload_fingerprint_follows_the_module_source(monkeypatch):
 def test_workload_modules_use_no_graph_capture():
     root = pathlib.Path(__file__).resolve().parents[1] / "src/repro_torch"
     banned = ("torch.export", "torch.compile", "make_fx", "_higher_order_ops")
+    # the lint names these APIs as the capture points its jit-purity
+    # checker looks for; it imports no torch at all, checked below
+    lint = root / "lint"
     hits = [f"{f.relative_to(root)}: {b}"
-            for f in sorted(root.rglob("*.py"))
+            for f in sorted(root.rglob("*.py")) if lint not in f.parents
             for b in banned if b in f.read_text()]
     assert hits == []
+    lint_imports = [f"{f.relative_to(root)}: {name}"
+                    for f in sorted(lint.rglob("*.py"))
+                    for node in ast.walk(ast.parse(f.read_text()))
+                    if isinstance(node, (ast.Import, ast.ImportFrom))
+                    for name in ([a.name for a in node.names]
+                                 if isinstance(node, ast.Import)
+                                 else [node.module or ""])
+                    if name.split(".")[0] == "torch"]
+    assert len(list(lint.rglob("*.py"))) >= 8 and lint_imports == []
 
 
 def test_traces_on_concurrent_threads_stay_apart():
