@@ -37,6 +37,7 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.accel import _build, count_launch
 from repro_torch.core.accel.pallas_ops import segment_max, segment_sum
 from repro_torch.core.isa import LEVEL_MEM
@@ -166,12 +167,14 @@ def placement_lists(part, ct, cfg) -> List[List[int]]:
 # lint: numpy-twin(repro_torch.core.accel.place:_plain, batched)
 def place_candidates(part, ct, cfg) -> List:
     """``_place`` on the trace's device: the placement kernel on a CUDA
-    trace, its plain version on a CPU trace."""
+    trace, its plain version on a CPU trace (span ``select.place``: the
+    flat arrays, the launch, the readback and the join into candidates)."""
     from repro_torch.core.offload import _candidates
 
     if not part.protos:
         return []
-    return _candidates(part.protos, *placement_lists(part, ct, cfg))
+    with obs.span("select.place", cat="select", n_protos=len(part.protos)):
+        return _candidates(part.protos, *placement_lists(part, ct, cfg))
 
 
 # lint: numpy-twin(repro_torch.core.accel.place:_plain, batched)

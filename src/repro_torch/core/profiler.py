@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.columnar import ColumnarTrace, resolve_device
 from repro_torch.core.device_model import DRAM_ACCESS_PJ, TechModel, TECHS
@@ -324,9 +325,13 @@ def profile_system(tr: TraceResult,
         result = select_candidates(trace, tr.rut, tr.iht, offload_cfg)
     reshaped = reshaped or reshape(trace, result)
     prof = Profiler(cache_cfgs, tech=tech, host=host)
-    base_eb, base_cycles = prof.price_baseline(trace)
-    cim_eb, cim_cycles = prof.price_cim(trace, reshaped)
-    mb = result.macr_breakdown(trace)
+    with obs.span("price.baseline", cat="price"):
+        base_eb, base_cycles = prof.price_baseline(trace)
+    with obs.span("price.cim", cat="price",
+                  n_groups=len(reshaped.cim_groups)):
+        cim_eb, cim_cycles = prof.price_cim(trace, reshaped)
+    with obs.span("price.macr", cat="price"):
+        mb = result.macr_breakdown(trace)
     return SystemReport(
         base=base_eb, cim=cim_eb,
         base_cycles=base_cycles, cim_cycles=cim_cycles,

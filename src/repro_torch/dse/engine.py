@@ -313,7 +313,10 @@ class AnalysisCache:
                     self.offload_builds += 1
                 sp.set(source="build", layer=2)
                 analysis = self.trace_analysis(workload, cache)
-                result = analysis.select(cfg)
+                # Algorithm 1: tree extraction, then placement
+                with obs.span("select.candidates", cat="select") as cs:
+                    result = analysis.select(cfg)
+                    cs.set(n_candidates=len(result.candidates))
                 reshaped = reshape(analysis.trace, result)
                 with self._lock:
                     self._offloads[key] = (result, reshaped)

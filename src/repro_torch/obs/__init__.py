@@ -3,8 +3,13 @@
 The engine, the store, the backends, the adaptive loop and the DSE
 service open spans through this package, as the reference's do, and the
 finished spans export to Perfetto (Chrome trace-event JSON), NDJSON, or a
-per-stage attribution table.  Tracing is off by default and free when
-off::
+per-stage attribution table.  Each finished span also records the
+thread's CPU time (``cpu_ns``, beside the wall-clock ``dur_ns``; the
+difference is time spent waiting) and the garbage collections that
+paused it while it was the innermost open span of its thread (``gc_n``
+and ``gc_ns`` attributes; collections with no span open are counted on
+the tracer as ``gc_unattributed_n`` / ``gc_unattributed_ns``).  Tracing
+is off by default and free when off, with no collector hook installed::
 
     from repro_torch import obs
     tracer = obs.enable()

@@ -13,11 +13,13 @@ Three consumers, three formats:
 
 * :func:`export_chrome` — Chrome trace-event JSON, the dialect
   Perfetto (https://ui.perfetto.dev) and ``chrome://tracing`` load:
-  complete spans as ``ph:"X"`` events (``ts``/``dur`` in microseconds),
-  counter samples as ``ph:"C"`` events, and ``ph:"M"`` metadata naming
-  each pid/tid so the track labels read "eva-cim (pid 1234)" /
+  complete spans as ``ph:"X"`` events (``ts``/``dur`` in microseconds,
+  and ``tdur``, the thread's CPU time, for a span that recorded
+  ``cpu_ns``), counter samples as ``ph:"C"`` events, and ``ph:"M"``
+  metadata naming each pid/tid so the track labels read "eva-cim (pid 1234)" /
   "dse-worker-3" instead of bare numbers.
-* :func:`export_ndjson` — one span dict per line, for grep/jq.
+* :func:`export_ndjson` — one span dict per line, for grep/jq (with
+  ``cpu_ns`` and the ``gc_n`` / ``gc_ns`` attributes where recorded).
 * :func:`stage_attribution` — the per-stage rollup behind
   ``examples/dse_cim.py --trace-report``: total and *self* time per
   category (self = duration minus children, clamped at zero — so with a
@@ -63,10 +65,13 @@ def export_chrome(spans: Sequence[Dict], counters: Sequence[Dict] = (),
         args["span_id"] = s["span_id"]
         if s["parent_id"]:
             args["parent_id"] = s["parent_id"]
-        events.append({"name": s["name"], "cat": s["cat"] or "misc",
-                       "ph": "X", "ts": _us(s["ts_ns"] - base_ns),
-                       "dur": _us(s["dur_ns"]), "pid": pid, "tid": tid,
-                       "args": args})
+        event = {"name": s["name"], "cat": s["cat"] or "misc",
+                 "ph": "X", "ts": _us(s["ts_ns"] - base_ns),
+                 "dur": _us(s["dur_ns"]), "pid": pid, "tid": tid,
+                 "args": args}
+        if "cpu_ns" in s:
+            event["tdur"] = _us(s["cpu_ns"])     # thread time
+        events.append(event)
     n_span_events = len(events)
     for c in counters:
         pid = c["pid"]

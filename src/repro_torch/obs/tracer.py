@@ -34,11 +34,31 @@ Design rules, in order of importance:
   spans are counted in ``dropped`` instead of growing the buffer (the
   DSE daemon additionally drains each request's spans into its own ring
   buffer the moment the request finishes).
+
+Beyond the reference's record, each finished span carries two readings
+that tell work from waiting:
+
+* ``cpu_ns``, beside ``dur_ns``: the thread's CPU time between enter and
+  exit (``time.thread_time_ns``).  ``dur_ns - cpu_ns`` is the time the
+  span spent off the CPU: waiting for the GIL or a lock, sleeping, or
+  in a blocking call that yields.  A wait in which CUDA spins on the
+  device (a synchronize, a readback) burns CPU and counts as CPU time.
+  Where the kernel accounts thread time in scheduler ticks, one span's
+  reading is a multiple of the tick; sums over many spans stay unbiased.
+* ``gc_n`` / ``gc_ns`` attributes: the garbage collections that started
+  while the span was the innermost one open in its thread, and their
+  summed pauses.  While a tracer is installed, one ``gc.callbacks`` hook
+  times every collection and charges it to the innermost live span of
+  the collecting thread (a second context variable holds that
+  :class:`Span`); a collection with no span open is counted on the
+  tracer (``gc_unattributed_n`` / ``gc_unattributed_ns``).  Each pause is
+  charged once, so summing ``gc_ns`` over the spans counts it once.
 """
 from __future__ import annotations
 
 import contextvars
 import dataclasses
+import gc
 import itertools
 import os
 import threading
@@ -49,7 +69,13 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 _current: contextvars.ContextVar[Optional["TraceContext"]] = \
     contextvars.ContextVar("eva_cim_trace_ctx", default=None)
 
+# the innermost open Span of this thread (not propagated by attach()):
+# the span a garbage collection is charged to
+_live: contextvars.ContextVar[Optional["Span"]] = \
+    contextvars.ContextVar("eva_cim_live_span", default=None)
+
 _tracer: Optional["Tracer"] = None     # module-global on/off switch
+_gc_t0 = 0     # perf_counter_ns at the start of the running collection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +111,16 @@ NULL_SPAN = _NullSpan()
 class Span:
     """One in-flight span; finished spans live on as plain dicts.
 
-    Use as a context manager — ``__enter__`` stamps the start time and
-    makes this span the :func:`current` context, ``__exit__`` restores
-    the parent and hands the finished record to the tracer.  ``set``
-    attaches attributes at any point before exit (it only touches this
-    span's own dict, so it is safe under any caller-held lock)."""
+    Use as a context manager — ``__enter__`` stamps the start time (wall
+    and thread CPU) and makes this span the :func:`current` context,
+    ``__exit__`` restores the parent and hands the finished record to the
+    tracer.  ``set`` attaches attributes at any point before exit (it only
+    touches this span's own dict, so it is safe under any caller-held
+    lock)."""
 
     __slots__ = ("_tracer", "name", "cat", "trace_id", "span_id",
-                 "parent_id", "attrs", "_t0", "_token")
+                 "parent_id", "attrs", "_t0", "_cpu0", "_token",
+                 "_live_token")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  trace_id: str, span_id: str, parent_id: Optional[str],
@@ -105,7 +133,9 @@ class Span:
         self.parent_id = parent_id
         self.attrs = attrs
         self._t0 = 0
+        self._cpu0 = 0
         self._token: Optional[contextvars.Token] = None
+        self._live_token: Optional[contextvars.Token] = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -113,17 +143,23 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = _current.set(TraceContext(self.trace_id, self.span_id))
+        self._live_token = _live.set(self)
+        self._cpu0 = time.thread_time_ns()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         dur_ns = time.perf_counter_ns() - self._t0
+        cpu_ns = time.thread_time_ns() - self._cpu0
+        if self._live_token is not None:
+            _live.reset(self._live_token)
+            self._live_token = None
         if self._token is not None:
             _current.reset(self._token)
             self._token = None
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
-        self._tracer._finish(self, dur_ns)
+        self._tracer._finish(self, dur_ns, cpu_ns)
         return False
 
 
@@ -142,6 +178,10 @@ class Tracer:
         self._spans: List[Dict] = []          # lint: guarded-by(_lock)
         self._samples: List[Dict] = []        # lint: guarded-by(_lock)
         self.dropped = 0                      # lint: guarded-by(_lock)
+        # collections with no span open; written by the gc hook alone,
+        # which takes no lock (collections never overlap)
+        self.gc_unattributed_n = 0
+        self.gc_unattributed_ns = 0
 
     # ------------------------------------------------------------- spans
     def _new_id(self) -> str:
@@ -158,13 +198,14 @@ class Tracer:
             trace_id, parent = ctx.trace_id, ctx.span_id
         return Span(self, name, cat, trace_id, self._new_id(), parent, attrs)
 
-    def _finish(self, span: Span, dur_ns: int) -> None:
+    def _finish(self, span: Span, dur_ns: int, cpu_ns: int) -> None:
         thread = threading.current_thread()
         rec = {"name": span.name, "cat": span.cat,
                "trace_id": span.trace_id, "span_id": span.span_id,
                "parent_id": span.parent_id,
                "ts_ns": span._t0 + self._epoch_ns, "dur_ns": dur_ns,
-               "pid": self.pid, "tid": thread.ident, "thread": thread.name,
+               "cpu_ns": cpu_ns, "pid": self.pid, "tid": thread.ident,
+               "thread": thread.name,
                "attrs": dict(span.attrs)}
         with self._lock:
             if len(self._spans) >= self.max_spans:
@@ -248,19 +289,52 @@ def active() -> bool:
     return _tracer is not None
 
 
+def _on_gc(phase: str, info: Dict) -> None:
+    """The ``gc.callbacks`` hook: charge each collection's pause to the
+    innermost live span of the collecting thread, else to the tracer.
+
+    It takes no lock: a collection can start inside :meth:`Tracer._finish`
+    while ``_lock`` is held.  Collections never overlap, so one start
+    stamp serves them all."""
+    global _gc_t0
+    if phase == "start":
+        _gc_t0 = time.perf_counter_ns()
+        return
+    if not _gc_t0:
+        return                  # the hook was installed mid-collection
+    pause = time.perf_counter_ns() - _gc_t0
+    _gc_t0 = 0
+    sp = _live.get()
+    if sp is not None:
+        attrs = sp.attrs
+        attrs["gc_n"] = attrs.get("gc_n", 0) + 1
+        attrs["gc_ns"] = attrs.get("gc_ns", 0) + pause
+        return
+    t = _tracer
+    if t is not None:
+        t.gc_unattributed_n += 1
+        t.gc_unattributed_ns += pause
+
+
 def enable(t: Optional[Tracer] = None) -> Tracer:
-    """Install (or keep) the process-global tracer and return it."""
+    """Install (or keep) the process-global tracer and return it, with
+    the collector hook installed once."""
     global _tracer
     if t is not None:
         _tracer = t
     elif _tracer is None:
         _tracer = Tracer()
+    if _on_gc not in gc.callbacks:
+        gc.callbacks.append(_on_gc)
     return _tracer
 
 
 def disable() -> None:
+    """Remove the tracer and the collector hook."""
     global _tracer
     _tracer = None
+    if _on_gc in gc.callbacks:
+        gc.callbacks.remove(_on_gc)
 
 
 def span(name: str, cat: str = "misc", **attrs):
