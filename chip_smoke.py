@@ -23,6 +23,10 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   ``place_sorted``, its formulation from the segment
                   kernels and a sort) and on synthetic partitions with
                   runs of up to 1,100 accesses under the three level sets;
+                  pricing's counts (K9) on astar's selection, with no host
+                  rows or conversions and on the empty trace, then its
+                  launch (events), its call with the readback, and the
+                  library chain the profiler ran before it (host clock);
                   then the times of kernel, plain version and the one
                   PyTorch call computing the same function, where one exists
                   (kernel and library timed in turns: kernel, library,
@@ -51,7 +55,7 @@ Drives ``repro_torch`` only (never JAX or the ``repro`` package):
                   record compared (==) with the reference's reports by
                   (cache, level set, tech), the replay counters too; the
                   launch counts of every kernel, equal to the engine's
-                  builds; the stage seconds from the engine's spans
+                  builds and (K9) its points; the stage seconds from the engine's spans
                   (``obs.stage_attribution``, self time per stage, one
                   pricing thread so they add up to the wall); then the same
                   sweep again on a fresh engine under ``torch.profiler``:
@@ -232,6 +236,7 @@ import collections
 import contextlib
 import ctypes
 import io
+import itertools
 import json
 import os
 import pathlib
@@ -2947,6 +2952,112 @@ def main():
           f"{call_ms:.4f} ms (host clock); bound {place_bound:.6f} ms "
           f"({place_by})", flush=True)
 
+    # pricing's counts (K9): the kernel against its plain version on
+    # astar's selection (32K+256K, both levels) and on degenerate inputs;
+    # then its time: the launch alone (events, 50 in a row), the whole call
+    # with its readback (host clock), the plain version, and the library
+    # chain the profiler ran before it, with its syncs (host clock)
+    from repro_torch.core import profiler
+    from repro_torch.core.accel import price_counts as pc
+    from repro_torch.core.reshape import reshape
+
+    res = select_candidates(tt, cfg=cfg, device=dev)
+    hs, conv = profiler._selection_index(res, reshape(tt, res), dev)
+    ct_cpu = tr_cpu.trace
+    res_cpu = select_candidates(ct_cpu, cfg=cfg, device="cpu")
+    hs_cpu, conv_cpu = profiler._selection_index(
+        res_cpu, reshape(ct_cpu, res_cpu), ct_cpu.device)
+    cols, cols_cpu = (tt.unit, tt.level, tt.op), \
+        (ct_cpu.unit, ct_cpu.level, ct_cpu.op)
+    none = torch.zeros(0, dtype=torch.int64)
+    for case, idx, idx_cpu in (
+            ("astar's selection", (hs, conv), (hs_cpu, conv_cpu)),
+            ("no host rows, no conversions", (none.to(dev),) * 2,
+             (none, none)),
+            ("the empty trace", None, None)):
+        if idx is None:
+            got = pc.price_counts(*(c[:0] for c in cols), *(none.to(dev),) * 2)
+            want_counts = pc.price_counts(*(c[:0] for c in cols_cpu), none,
+                                          none)
+        else:
+            got = pc.price_counts(*cols, *idx)
+            want_counts = pc.price_counts(*cols_cpu, *idx_cpu)
+        if got != want_counts:
+            fail(f"price_counts differs from its plain version on {case}")
+    if profiler.count_trace(tt, hs, conv).macr_breakdown() != \
+            res.macr_breakdown(tt):
+        fail("price_counts' MACR differs from the selection's")
+
+    def library_chain():
+        """The count chain the profiler ran before K9: bincounts, gathers
+        at host_seqs, boolean-mask selections, the memory mask's sum and
+        the converted accesses' list, copy and level gather, each read
+        back."""
+        def mem_counts(level_col, is_store_col):
+            mem = level_col > 0
+            combo = level_col[mem].to(torch.int64) * 2 \
+                + is_store_col[mem].to(torch.int64)
+            return torch.bincount(combo).tolist()
+
+        torch.bincount(tt.unit.to(torch.int64), minlength=11).tolist()
+        mem_counts(tt.level, tt.op == OP_STORE)
+        hsl = rs_lib.host_seqs
+        torch.bincount(tt.unit[hsl].to(torch.int64), minlength=11).tolist()
+        mem_counts(tt.level[hsl], tt.op[hsl] == OP_STORE)
+        int(tt.mem_mask.sum())
+        seqs = list(itertools.chain.from_iterable(
+            c.load_seqs + c.store_seqs for c in res.candidates))
+        lv = tt.level[torch.tensor(seqs, dtype=torch.int64, device=dev)]
+        return int((lv == 1).sum())
+
+    rs_lib = reshape(tt, res)
+    k9_ms = event_ms(lambda: pc._launch(*cols, hs, conv), 50)
+    k9_call_ms = host_ms(lambda: pc.price_counts(*cols, hs, conv), 50)
+    k9_plain = host_ms(lambda: pc.price_counts(*cols_cpu, hs_cpu, conv_cpu),
+                       20)
+    k9_lib_ms = host_ms(library_chain, 50)
+    k9_names = {}
+    k9_dev_ms, k9_per_call = profiled_device_ms(
+        lambda: pc._launch(*cols, hs, conv), 50, k9_names)
+    lib_names = {}
+    lib_dev_ms, lib_per_call = profiled_device_ms(library_chain, 20,
+                                                  lib_names)
+    if k9_dev_ms is not None and round(k9_per_call) != 2:
+        fail(f"price_counts ran {k9_per_call} device events a call, not "
+             f"a memset and one kernel")
+    # bytes: the three columns read once, the host rows' and converted
+    # accesses' indices and the columns gathered through them, the counts
+    n_rows, n_hs, n_conv = tt.unit.numel(), hs.numel(), conv.numel()
+    row_bytes = sum(c.element_size() for c in cols)
+    k9_bytes = (n_rows * row_bytes + n_hs * (8 + row_bytes)
+                + n_conv * (8 + tt.level.element_size()) + pc.N_OUT * 8)
+    k9_bound, k9_by = bytes_bound_ms(k9_bytes, n_rows + n_hs + n_conv)
+    kernels["price_counts"] = dict(
+        twin="src/repro/core/profiler.py::Profiler._unit_counts, "
+             "_mem_counts; src/repro/core/offload.py::"
+             "OffloadResult.macr_breakdown (numpy on the host)",
+        source="src/repro_torch/core/accel/csrc/price_counts.cu",
+        replaces="none (the reference counts with numpy on the host)",
+        equal=True, max_abs_err=0, ms=k9_ms, plain_ms=k9_plain,
+        bound_ms=k9_bound, bound_by=k9_by, library_ms=k9_lib_ms,
+        library_call="the parent's count chain with its readbacks (host "
+                     "clock)",
+        call_ms=k9_call_ms, device_ms=k9_dev_ms,
+        kernels_per_call=k9_per_call, library_device_ms=lib_dev_ms,
+        library_kernels_per_call=lib_per_call,
+        shape=f"{n_rows} rows, {n_hs} host rows, {n_conv} converted "
+              f"accesses (astar, 32K+256K, both levels)")
+    print(f"price_counts (K9): equal on 3 cases; {k9_ms:.4f} ms a launch "
+          f"(events, 50 in a row); whole call with its readback "
+          f"{k9_call_ms:.4f} ms, the library chain it replaced "
+          f"{k9_lib_ms:.4f} ms (host clock, 50 calls); plain "
+          f"{k9_plain:.3f} ms (host); device only (profiler): kernel "
+          f"{ms_text(k9_dev_ms)} in {k9_per_call:g} event(s) a call "
+          + json.dumps({k[:40]: v for k, v in k9_names.items()})
+          + f", library chain {ms_text(lib_dev_ms)} in {lib_per_call:g}; "
+          f"bound {k9_bound:.6f} ms ({k9_by}, {k9_bytes} bytes)",
+          flush=True)
+
     # ------------------------------------------------ 3b. trace frontend
     traces, trace_detail = trace_phase(dev)
     detail["trace_frontend"] = trace_detail
@@ -3013,9 +3124,10 @@ def main():
         if launches[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
     if launches["replay"] != stats["replay_batches"] \
-            or launches["place"] != stats["offload_builds"]:
+            or launches["place"] != stats["offload_builds"] \
+            or launches["price_counts"] != len(space):
         fail(f"main path launches {launches} differ from the engine's "
-             f"builds {stats}")
+             f"builds {stats} and its {len(space)} points")
 
     # the same sweep again under torch.profiler, on a fresh engine: summed
     # device time per kernel, and the device's busy share of the traced
@@ -3045,6 +3157,11 @@ def main():
               {k[:60]: [round(v[0], 4), v[1]] for k, v in top}), flush=True)
     kernels["replay"]["main_path_device_ms"] = per_kernel["replay"]
     kernels["place"]["main_path_device_ms"] = per_kernel["place"]
+    k9_hits = [(ms, n) for key, (ms, n) in events.items()
+               if "price_counts_kernel" in key]
+    kernels["price_counts"]["main_path_device_ms"] = dict(
+        device_ms=sum(ms for ms, _ in k9_hits),
+        launches=sum(n for _, n in k9_hits))
 
     # ---------------------------------------------------- 5. kernels path
     cim_table, cim_launches, cim_path_s = cim_kernels_phase(dev)

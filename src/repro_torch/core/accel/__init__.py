@@ -12,6 +12,8 @@ tensor launches its kernel or raises.
   * :mod:`.replay` -- the batched LRU/MSHR/writeback cache replay
   * :mod:`.place` -- placement (target level, moves, DRAM fills, bank per
     proto), one launch a call
+  * :mod:`.price_counts` -- every count a design point is priced from,
+    one launch and one readback a point
 
 Launch accounting takes the place of the reference's ``jit_compiles``:
 each wrapper adds one to its kernel's count where it launches it, so a run
@@ -23,7 +25,7 @@ import threading
 from typing import Dict
 
 #: the kernels this package launches
-KERNELS = ("segment_sum", "segment_max", "replay", "place")
+KERNELS = ("segment_sum", "segment_max", "replay", "place", "price_counts")
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # wrappers launch from the DSE engine's pool threads: a count is a

@@ -7,29 +7,37 @@ CiM-enabled system, and emits the paper's reported metrics: energy
 improvement, speedup, processor/cache contribution breakdown (Table VI) and
 MACR (Fig. 13).
 
-Twin of ``repro/core/profiler.py``.  On a columnar trace the counts run
-on the trace's device as int64 -- a ``bincount`` over functional units and
-the (level, is_write) buckets of the memory instructions.  Every float64
-sum runs on the host as Python floats in the reference's statement order,
-including the iteration order of its dicts and its ``Counter``, so the
-priced reports are *exactly* equal to the reference's, not merely close.
-A hand-built ``List[Inst]`` trace is priced as the reference prices it:
-one host loop over the instructions, in its order of additions.
+Twin of ``repro/core/profiler.py``.  On a columnar trace every count a
+design point is priced from -- the functional-unit and (level, is_write)
+histograms of the baseline and of the CiM run, the memory accesses and the
+converted accesses served at L1 -- comes from one
+:func:`~repro_torch.core.accel.price_counts.price_counts` call on the
+trace's device (one kernel launch and one readback on the card), made
+afresh for every point: :class:`PriceCounts`.  Every float64 sum runs on
+the host as Python floats in the reference's statement order, including
+the iteration order of its dicts and its ``Counter``, so the priced
+reports are *exactly* equal to the reference's, not merely close.  A
+hand-built ``List[Inst]`` trace is priced as the reference prices it: one
+host loop over the instructions, in its order of additions.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
+import weakref
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import obs
+from repro_torch.core.accel import price_counts as pc
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.columnar import ColumnarTrace, resolve_device
 from repro_torch.core.device_model import DRAM_ACCESS_PJ, TechModel, TECHS
 from repro_torch.core.host_model import DEFAULT_HOST, HostModel
-from repro_torch.core.isa import LEVELS, LEVEL_L2, LEVEL_MEM, OP_STORE, UNITS
+from repro_torch.core.isa import LEVELS, LEVEL_L2, LEVEL_MEM, UNITS
 from repro_torch.core.offload import (OffloadConfig, OffloadResult,
                                       select_candidates)
 from repro_torch.core.reshape import ReshapedTrace, reshape
@@ -182,22 +190,6 @@ class Profiler:
             eb.cache[key] = eb.cache.get(key, 0.0) + cnt * e
         return cycles
 
-    @staticmethod
-    def _unit_counts(unit_col: torch.Tensor) -> List[int]:
-        """Instructions per functional-unit code (device bincount)."""
-        return torch.bincount(unit_col.to(torch.int64),
-                              minlength=len(UNITS)).tolist()
-
-    @staticmethod
-    def _mem_counts(level_col: torch.Tensor, is_store_col: torch.Tensor
-                    ) -> Dict[Tuple[int, int], int]:
-        """(level code, is_write) -> count over the memory instructions."""
-        mem = level_col > 0
-        combo = level_col[mem].to(torch.int64) * 2 \
-            + is_store_col[mem].to(torch.int64)
-        counts = torch.bincount(combo).tolist()
-        return {(c // 2, c % 2): n for c, n in enumerate(counts) if n}
-
     def _price_host_rows(self, eb: EnergyBreakdown, insts) -> float:
         """Host-side pricing of ``List[Inst]`` rows, one instruction at a
         time in the reference's order of additions."""
@@ -217,30 +209,33 @@ class Profiler:
         return cycles
 
     # ------------------------------------------------------------ baseline
-    def price_baseline(self, trace) -> Tuple[EnergyBreakdown, float]:
+    def price_baseline(self, trace, counts: Optional["PriceCounts"] = None
+                       ) -> Tuple[EnergyBreakdown, float]:
+        """``counts`` (a columnar trace's, from :func:`count_trace`) saves
+        the count call."""
         eb = EnergyBreakdown()
         if isinstance(trace, ColumnarTrace):
-            unit_counts = self._unit_counts(trace.unit)
-            mem_counts = self._mem_counts(trace.level, trace.op == OP_STORE)
-            cycles = self._price_host_columns(eb, unit_counts, mem_counts)
+            counts = counts or count_trace(trace)
+            cycles = self._price_host_columns(eb, counts.units, counts.mem)
         else:
             cycles = self._price_host_rows(eb, trace)
         eb.host_static = self.host.static_pj_per_cycle * cycles
         return eb, cycles
 
     # ------------------------------------------------------------ CiM run
-    def price_cim(self, trace, reshaped: ReshapedTrace
+    def price_cim(self, trace, reshaped: ReshapedTrace,
+                  counts: Optional["PriceCounts"] = None
                   ) -> Tuple[EnergyBreakdown, float]:
+        """``counts`` (a columnar trace's, counted at
+        ``reshaped.host_seqs``) saves the count call."""
         eb = EnergyBreakdown()
-        hs = reshaped.host_seqs
         if isinstance(trace, ColumnarTrace):
-            unit_counts = self._unit_counts(trace.unit[hs])
-            mem_counts = self._mem_counts(trace.level[hs],
-                                          trace.op[hs] == OP_STORE)
-            cycles = self._price_host_columns(eb, unit_counts, mem_counts)
+            counts = counts or count_trace(trace, reshaped.host_seqs)
+            cycles = self._price_host_columns(eb, counts.host_units,
+                                              counts.host_mem)
         else:
             cycles = self._price_host_rows(
-                eb, (trace[seq] for seq in hs.tolist()))
+                eb, (trace[seq] for seq in reshaped.host_seqs.tolist()))
 
         l1_read_lat = self.tech.latency("read", "L1")
         # one CiM macro-instruction issued/committed by the host per
@@ -293,6 +288,111 @@ class Profiler:
 
 
 # ======================================================================
+# The counts a columnar point is priced from: one readback
+# ======================================================================
+@dataclasses.dataclass
+class PriceCounts:
+    """The integers one columnar design point is priced from, as the
+    profiler's host arithmetic takes them: ``units`` a bincount over
+    functional-unit codes (at least ``len(UNITS)`` long), ``mem`` (level
+    code, is_write) -> accesses in ascending code order without zeros, each
+    over all rows and (``host_``) over the rows the CiM run keeps; the
+    trace's loads and stores; the converted accesses and those of them
+    served at L1."""
+    units: List[int]
+    mem: Dict[Tuple[int, int], int]
+    host_units: List[int]
+    host_mem: Dict[Tuple[int, int], int]
+    mem_accesses: int
+    converted: int
+    converted_l1: int
+
+    def macr_breakdown(self) -> Dict[str, float]:
+        """:meth:`OffloadResult.macr_breakdown` from the counts."""
+        total = max(1, self.mem_accesses)
+        if self.converted:
+            l1 = self.converted_l1
+            other = self.converted - l1
+        else:
+            l1 = other = 0
+        return {"macr": (l1 + other) / total, "l1": l1 / total,
+                "other": other / total,
+                "total_accesses": total, "converted": l1 + other}
+
+
+def _unit_list(bins: List[int]) -> List[int]:
+    """A unit histogram as ``bincount(minlength=len(UNITS))`` returns it."""
+    n = len(bins)
+    while n > len(UNITS) and not bins[n - 1]:
+        n -= 1
+    return bins[:n]
+
+
+def _mem_dict(bins: List[int]) -> Dict[Tuple[int, int], int]:
+    return {(c // 2, c % 2): n for c, n in enumerate(bins) if n}
+
+
+def count_trace(trace: ColumnarTrace,
+                host_seqs: Optional[torch.Tensor] = None,
+                conv: Optional[torch.Tensor] = None) -> PriceCounts:
+    """The counts of ``trace``, its rows at ``host_seqs`` and the converted
+    accesses at ``conv`` (int64 seqs; none where omitted), in one
+    :func:`~repro_torch.core.accel.price_counts.price_counts` call on the
+    trace's device."""
+    dev = trace.device
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    hs = empty if host_seqs is None else host_seqs.to(dev)
+    conv = empty if conv is None else conv
+    c = pc.price_counts(trace.unit, trace.level, trace.op, hs, conv)
+    return PriceCounts(
+        units=_unit_list(c[pc.UNITS_ALL:pc.UNITS_HOST]),
+        mem=_mem_dict(c[pc.MEM_ALL:pc.MEM_HOST]),
+        host_units=_unit_list(c[pc.UNITS_HOST:pc.MEM_ALL]),
+        host_mem=_mem_dict(c[pc.MEM_HOST:pc.MEM_ROWS]),
+        mem_accesses=c[pc.MEM_ROWS], converted=conv.numel(),
+        converted_l1=c[pc.CONV_L1])
+
+
+def _converted_index(result: OffloadResult, device) -> torch.Tensor:
+    """Every candidate's load and store seqs, in candidate order, as one
+    int64 tensor on ``device``."""
+    return torch.tensor(list(itertools.chain.from_iterable(
+        c.load_seqs + c.store_seqs for c in result.candidates)),
+        dtype=torch.int64, device=device)
+
+
+# (id(selection), id(reshaped trace), device) -> (weak references to both,
+# (host_seqs, converted index) on the device); an entry leaves when either
+# object dies, so an id is never read for another object
+_index: Dict[tuple, tuple] = {}
+_index_lock = threading.Lock()
+
+
+def _selection_index(result: OffloadResult, reshaped: ReshapedTrace,
+                     device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(host_seqs, converted index) of one selection on ``device``, int64:
+    built once per selection and reshaped trace object, so the points that
+    share a selection (the engine's layer-2 memo hands one object to every
+    technology and host) share them too."""
+    key = (id(result), id(reshaped), device)
+    with _index_lock:
+        entry = _index.get(key)
+    if entry is not None and entry[0]() is result \
+            and entry[1]() is reshaped:
+        return entry[2]
+    built = (reshaped.host_seqs.to(device=device, dtype=torch.int64)
+             .contiguous(), _converted_index(result, device))
+
+    def drop(_ref, key=key):
+        _index.pop(key, None)
+
+    with _index_lock:
+        _index[key] = (weakref.ref(result, drop),
+                       weakref.ref(reshaped, drop), built)
+    return built
+
+
+# ======================================================================
 # One-call pipeline: trace -> select -> reshape -> profile
 # ======================================================================
 def profile_system(tr: TraceResult,
@@ -325,13 +425,20 @@ def profile_system(tr: TraceResult,
         result = select_candidates(trace, tr.rut, tr.iht, offload_cfg)
     reshaped = reshaped or reshape(trace, result)
     prof = Profiler(cache_cfgs, tech=tech, host=host)
+    counts = None
+    if isinstance(trace, ColumnarTrace):
+        with obs.span("price.counts", cat="price",
+                      launches=int(trace.device.type == "cuda")):
+            counts = count_trace(trace, *_selection_index(result, reshaped,
+                                                          trace.device))
     with obs.span("price.baseline", cat="price"):
-        base_eb, base_cycles = prof.price_baseline(trace)
+        base_eb, base_cycles = prof.price_baseline(trace, counts)
     with obs.span("price.cim", cat="price",
                   n_groups=len(reshaped.cim_groups)):
-        cim_eb, cim_cycles = prof.price_cim(trace, reshaped)
+        cim_eb, cim_cycles = prof.price_cim(trace, reshaped, counts)
     with obs.span("price.macr", cat="price"):
-        mb = result.macr_breakdown(trace)
+        mb = (result.macr_breakdown(trace) if counts is None
+              else counts.macr_breakdown())
     return SystemReport(
         base=base_eb, cim=cim_eb,
         base_cycles=base_cycles, cim_cycles=cim_cycles,

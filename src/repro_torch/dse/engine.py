@@ -75,8 +75,9 @@ from repro_torch.dse.results import SweepRecord, SweepResults
 from repro_torch.dse.space import CacheOption, SweepPoint, SweepSpace
 from repro_torch.dse.store import AnalysisStore
 
-#: the kernels the engine launches: the replay (K1) and placement (K4)
-ENGINE_KERNELS = ("replay", "place")
+#: the kernels the engine launches: the replay (K1), placement (K4) and
+#: pricing's counts (K9, one a point priced on the card)
+ENGINE_KERNELS = ("replay", "place", "price_counts")
 
 
 class AnalysisCache:
@@ -461,7 +462,8 @@ class DSEEngine:
         store — so every analysis key is built exactly once globally.
         Spawn semantics apply: call it from a real module (under ``if
         __name__ == "__main__":`` in scripts), not stdin.  The workers'
-        replay and placement launches add up in :attr:`worker_launches`.
+        replay, placement and count launches add up in
+        :attr:`worker_launches`.
       * ``"serial"`` — no pool at all; useful for debugging and exact
         cost accounting.
 
@@ -502,7 +504,8 @@ class DSEEngine:
         self.backend = backend or CimBackend()
         self.executor = executor
         self.max_workers = max_workers or min(8, os.cpu_count() or 1)
-        #: replay and placement launches of this engine's process workers
+        #: replay, placement and count launches of this engine's process
+        #: workers
         self.worker_launches: Dict[str, int] = dict.fromkeys(ENGINE_KERNELS,
                                                              0)
         self._scratch_store: Optional[AnalysisStore] = None

@@ -163,10 +163,16 @@ class Span:
         return False
 
 
+#: the default cap on a tracer's finished spans: a minute of the pricing
+#: sweep at its untraced rate (about 650 design points a second on an H100,
+#: ten spans a point) is some 400,000, and a span holds about 0.9 KB
+MAX_SPANS = 1_000_000
+
+
 class Tracer:
     """Collector of finished spans + counter samples for one process."""
 
-    def __init__(self, name: str = "eva-cim", max_spans: int = 200_000):
+    def __init__(self, name: str = "eva-cim", max_spans: int = MAX_SPANS):
         self.name = name
         self.pid = os.getpid()
         self.max_spans = max_spans

@@ -22,14 +22,17 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch")  # CI images without torch skip the port
 
-from repro_torch.core import accel
+from repro_torch.core import accel, profiler
 from repro_torch.core.accel import place
+from repro_torch.core.accel import price_counts as pc
 from repro_torch.core.accel.pallas_ops import segment_max, segment_sum
 from repro_torch.core.accel.replay import replay_columns_batch
 from repro_torch.core.cache import CacheConfig, SPM_1M
 from repro_torch.core.isa import OP_STORE
 from repro_torch.core.offload import OffloadConfig, select_candidates
+from repro_torch.core.reshape import reshape
 from repro_torch.core.trace import attach_cache_results_batch
+from repro_torch.dse.space import CIM_SETS
 from repro_torch import kernels
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -219,6 +222,8 @@ def test_design_points_on_the_card_equal_reference_reports(cuda, name):
     assert launches["replay"] > 0 and launches["place"] > 0
     # placement is one kernel: the segment kernels are off the main path
     assert launches["segment_sum"] == launches["segment_max"] == 0
+    # one count launch a point priced
+    assert launches["price_counts"] == len(results)
 
 
 # ------------------------------------------------- DSE engine on the card
@@ -272,6 +277,7 @@ def test_process_workers_on_the_card_launch_the_kernels(cuda, tmp_path):
         fixtures.reference_records()["fig14"][:6]
     assert eng.worker_launches["replay"] == res.stats["trace_builds"] == 6
     assert eng.worker_launches["place"] == res.stats["offload_builds"] == 6
+    assert eng.worker_launches["price_counts"] == len(res) == 6
 
 
 # ------------------------------------------------------------ placement
@@ -368,6 +374,117 @@ def test_one_placement_is_one_kernel_launch(cuda):
     # the place kernel and nothing else; the trace may miss an event
     assert len(events) == 1 and "place_kernel" in next(iter(events)), events
     assert calls - 2 <= sum(events.values()) <= calls
+
+
+# ----------------------------------------------------- pricing's counts
+def _count_pair(tr, res):
+    """``profiler.count_trace`` of one selection, as ``profile_system``
+    calls it, with the launches it took."""
+    rs = reshape(tr.trace, res)
+    before = accel.launch_counts()["price_counts"]
+    got = profiler.count_trace(tr.trace, *profiler._selection_index(
+        res, rs, tr.trace.device))
+    return got, accel.launch_counts()["price_counts"] - before
+
+
+@pytest.mark.parametrize("name", fixtures.WORKLOADS)
+def test_price_counts_kernel_matches_plain_on_fixtures(cuda, name):
+    geo = fixtures.CACHES["32K+256K"]
+    tr, tr_dev = (attach_cache_results_batch(
+        fixtures.load_structural(name, device=d), [geo], device=d)[0]
+        for d in ("cpu", cuda))
+    for levels in LEVEL_SETS:
+        for cim_set in ("logic", "full"):
+            cfg = OffloadConfig(cim_levels=levels, cim_set=CIM_SETS[cim_set])
+            want, n_cpu = _count_pair(
+                tr, select_candidates(tr.trace, cfg=cfg, device="cpu"))
+            got, n_dev = _count_pair(
+                tr_dev, select_candidates(tr_dev.trace, cfg=cfg,
+                                          device=cuda))
+            assert (n_cpu, n_dev) == (0, 1)
+            assert got == want, (name, levels, cim_set)
+
+
+def _synthetic_columns(n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randint(0, 11, (n,), generator=gen).to(torch.int8),
+            torch.randint(0, 4, (n,), generator=gen).to(torch.int8),
+            torch.randint(0, 20, (n,), generator=gen).to(torch.int16),
+            torch.randint(0, max(n, 1), (n // 2,), generator=gen),
+            torch.randint(0, max(n, 1), (n // 3,), generator=gen))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 2048, 2049, 3_000_001])
+def test_price_counts_kernel_matches_plain_on_synthetic_columns(cuda, n):
+    """Lengths around a warp and a block's share, and one that makes the
+    capped grid stride; units 0-10, levels none to MEM, loads, stores and
+    other ops."""
+    cols = _synthetic_columns(n, n)
+    want = pc.price_counts(*cols)
+    before = accel.launch_counts()["price_counts"]
+    got = pc.price_counts(*(c.to(cuda) for c in cols))
+    assert accel.launch_counts()["price_counts"] == before + 1
+    assert got == want == pc._plain(*cols).tolist()
+    # the launch alone leaves the same counts on the device
+    out = pc._launch(*(c.to(cuda) for c in cols))
+    assert out.device.type == "cuda" and out.cpu().tolist() == want
+
+
+@pytest.mark.parametrize("bad", ("unit 16", "level 5", "host_seqs past the "
+                                 "end", "conv below 0"))
+def test_price_counts_kernel_refuses_what_the_trace_does_not_hold(cuda,
+                                                                    bad):
+    unit, level, op, hs, conv = (c.to(cuda) for c in
+                                 _synthetic_columns(100, 7))
+    if bad == "unit 16":
+        unit[40] = 16
+    elif bad == "level 5":
+        level[3] = 5
+    elif bad == "host_seqs past the end":
+        hs[0] = 100
+    else:
+        conv[-1] = -1
+    with pytest.raises(ValueError, match="price_counts"):
+        pc.price_counts(unit, level, op, hs, conv)
+    with pytest.raises(TypeError, match="price_counts"):
+        pc.price_counts(unit, level, op.to(torch.int32), hs, conv)
+
+
+def test_price_counts_takes_host_seqs_from_the_cpu(cuda):
+    """A selection loaded from a store keeps ``host_seqs`` on the CPU: the
+    profiler moves it to the trace's device once per selection."""
+    geo = fixtures.CACHES["32K+256K"]
+    tr = attach_cache_results_batch(fixtures.load_structural(
+        "KM", device=cuda), [geo], device=cuda)[0]
+    res = select_candidates(tr.trace, cfg=OffloadConfig(), device=cuda)
+    rs = reshape(tr.trace, res)
+    want = profiler.profile_system(tr, offload=res, reshaped=rs)
+    rs.host_seqs = rs.host_seqs.cpu()
+    hs, conv = profiler._selection_index(res, rs, tr.trace.device)
+    assert hs.device == tr.trace.device == conv.device
+    assert profiler._selection_index(res, rs, tr.trace.device)[0] is hs
+    before = accel.launch_counts()["price_counts"]
+    got = profiler.profile_system(tr, offload=res, reshaped=rs)
+    assert accel.launch_counts()["price_counts"] == before + 1
+    assert got == want
+
+
+def test_profile_system_on_the_card_is_one_count_launch(cuda):
+    """One ``profile_system`` call: exactly one count launch, and the
+    report ``==`` the CPU's."""
+    geo = fixtures.CACHES["32K+256K"]
+    reports = []
+    for dev in ("cpu", cuda):
+        tr = attach_cache_results_batch(fixtures.load_structural(
+            "astar", device=dev), [geo], device=dev)[0]
+        res = select_candidates(tr.trace, cfg=OffloadConfig(), device=dev)
+        rs = reshape(tr.trace, res)
+        before = accel.launch_counts()["price_counts"]
+        reports.append(profiler.profile_system(
+            tr, tech="fefet", offload=res, reshaped=rs, device=dev))
+        assert accel.launch_counts()["price_counts"] - before == \
+            (dev != "cpu")
+    assert reports[0] == reports[1]
 
 
 # ------------------------------------------------- repro_torch.kernels
@@ -662,6 +779,7 @@ def test_service_sweep_launches_replay_and_placement(cuda):
         assert launches["replay"] == 1 == (cache.replay_batches
                                            + cache.single_replays)
         assert launches["place"] == 2 == cache.offload_builds
+        assert launches["price_counts"] == 4 == len(got.records)
         assert got.records == want
         client.sweep(["NB"], **req)
         assert client.metrics()["accel"]["launches"] == launches

@@ -207,7 +207,8 @@ def test_process_executor_equals_thread_records(tmp_path, monkeypatch):
     assert got.stats["trace_builds"] == space.n_analyses() == 4
     assert got.stats["offload_builds"] == 12
     # CPU workers run the plain versions: no kernel launch to report
-    assert eng.worker_launches == {"replay": 0, "place": 0}
+    assert eng.worker_launches == {"replay": 0, "place": 0,
+                                   "price_counts": 0}
     again = port.DSEEngine(executor="process", max_workers=2,
                            store=tmp_path, device="cpu").run(space)
     assert again.stats["trace_builds"] == again.stats["offload_builds"] == 0

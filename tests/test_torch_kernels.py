@@ -13,13 +13,18 @@ the CUDA kernels must reproduce -- to the reference's kernels:
     (more cases in ``tests/test_torch_place.py``);
   * the replay (``CacheHierarchy.replay`` + ``counters``, through
     ``replay_columns_batch``) against the reference's batched jax replay
-    and its OrderedDict machine, on fuzzed streams.
+    and its OrderedDict machine, on fuzzed streams;
+  * pricing's counts (``price_counts``, through the profiler's
+    ``count_trace``) against the op chain of bincounts, gathers and
+    readbacks the profiler ran before the count kernel, on the 17 traces
+    and on edge cases.
 
 All comparisons are exact: the pipeline is integer.  The CUDA kernels are
 held to these plain versions by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` on the card.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -40,15 +45,24 @@ from repro.core.offload import _partition as ref_partition
 from repro.core.offload import _place as ref_place
 from repro.core.trace import attach_cache_results, trace_structural
 
+from repro_torch.core.accel import price_counts as pc_mod
 from repro_torch.core.accel.pallas_ops import (INT32_MIN, segment_max,
                                                segment_sum)
 from repro_torch.core.accel.place import place_candidates
+from repro_torch.core.accel.price_counts import price_counts
 from repro_torch.core.accel.replay import replay_columns_batch
 from repro_torch.core.cache import CacheConfig, L1_32K, L1_64K, L2_256K, \
     L2_2M, SPM_1M
 from repro_torch.core.columnar import ColumnarTrace
 from repro_torch.core.idg import IDGBuilder, build_flow_index
-from repro_torch.core.offload import OffloadConfig, _partition, _place
+from repro_torch.core.isa import LEVEL_L1, OP_STORE, UNITS
+from repro_torch.core.offload import (OffloadConfig, _partition, _place,
+                                      analyze_trace)
+from repro_torch.core.profiler import count_trace
+from repro_torch.core.reshape import reshape
+from repro_torch.core.trace import attach_cache_results as port_attach
+from repro_torch.dse.space import CIM_SETS
+from repro_torch.workloads import fixtures
 
 
 def _g(sets, assoc, banks, mshrs, name="L1"):
@@ -507,3 +521,171 @@ def test_replay_word_choice_and_its_guard():
     assert word_bytes(len(addrs), int(addrs.max()) >> 6, geo) == 8
     assert _emulation_equals_plain(addrs, wr, geo)
     assert not _emulation_equals_plain(addrs, wr, geo, word=4)
+
+
+# ======================================================================
+# pricing's counts: the plain version against the op chain it replaced
+# ======================================================================
+PRICE_CIM_SETS = ("logic", "full")
+_priced_traces = {}
+
+
+def _priced_trace(name):
+    """Workload ``name`` at 32K+256K on the CPU and its IDG artifacts."""
+    got = _priced_traces.get(name)
+    if got is None:
+        tr = port_attach(fixtures.load_structural(name, device="cpu"),
+                         (L1_32K, L2_256K), device="cpu")
+        got = _priced_traces[name] = (tr.trace, analyze_trace(tr))
+    return got
+
+
+def _converted_seqs(result):
+    return [s for c in result.candidates for s in c.load_seqs + c.store_seqs]
+
+
+def _present_chain(trace, host_seqs, seqs):
+    """The counts as pricing made them before the count kernel: two
+    bincounts and their readbacks per histogram pair, the gathers at
+    ``host_seqs``, the memory mask's sum and the converted accesses' level
+    gather (``Profiler._unit_counts`` / ``_mem_counts``,
+    ``OffloadResult.macr_breakdown``)."""
+    def unit_counts(unit_col):
+        return torch.bincount(unit_col.to(torch.int64),
+                              minlength=len(UNITS)).tolist()
+
+    def mem_counts(level_col, is_store_col):
+        mem = level_col > 0
+        combo = level_col[mem].to(torch.int64) * 2 \
+            + is_store_col[mem].to(torch.int64)
+        counts = torch.bincount(combo).tolist()
+        return {(c // 2, c % 2): n for c, n in enumerate(counts) if n}
+
+    hs = host_seqs
+    l1 = 0
+    if seqs:
+        lv = trace.level[torch.tensor(seqs, dtype=torch.int64)]
+        l1 = int((lv == LEVEL_L1).sum())
+    return dict(units=unit_counts(trace.unit),
+                mem=mem_counts(trace.level, trace.op == OP_STORE),
+                host_units=unit_counts(trace.unit[hs]),
+                host_mem=mem_counts(trace.level[hs],
+                                    trace.op[hs] == OP_STORE),
+                mem_accesses=trace.mem_accesses(), converted=len(seqs),
+                converted_l1=l1)
+
+
+@pytest.mark.parametrize("cim_set", PRICE_CIM_SETS)
+@pytest.mark.parametrize("levels", LEVEL_SETS)
+@pytest.mark.parametrize("name", fixtures.WORKLOADS)
+def test_price_counts_plain_matches_present_chain(name, levels, cim_set):
+    """Every count of the 17 Table-IV traces at 32K+256K, under each CiM
+    level set and the logic and full op sets, ``==`` the op chain."""
+    trace, analysis = _priced_trace(name)
+    result = analysis.select(OffloadConfig(cim_levels=levels,
+                                           cim_set=CIM_SETS[cim_set]))
+    hs = reshape(trace, result).host_seqs
+    seqs = _converted_seqs(result)
+    conv = torch.tensor(seqs, dtype=torch.int64)
+    got = count_trace(trace, hs, conv)
+    assert dataclasses.asdict(got) == _present_chain(trace, hs, seqs)
+    # the dict order the profiler's float sums follow: ascending codes
+    assert list(got.mem) == sorted(got.mem)
+    assert list(got.host_mem) == sorted(got.host_mem)
+    raw = price_counts(trace.unit, trace.level, trace.op, hs, conv)
+    assert len(raw) == pc_mod.N_OUT and raw[pc_mod.BAD] == 0
+    assert raw[pc_mod.MEM_ROWS] == trace.mem_accesses()
+
+
+def _tiny_trace(unit, level, op):
+    """A trace of the given columns alone (what the counts read)."""
+    return types.SimpleNamespace(unit=torch.tensor(unit, dtype=torch.int8),
+                                 level=torch.tensor(level, dtype=torch.int8),
+                                 op=torch.tensor(op, dtype=torch.int16))
+
+
+def _rows_of(trace, keep):
+    """The rows ``keep`` of ``trace`` as a trace of their own (operands
+    dropped: the counts read none)."""
+    return ColumnarTrace(
+        keep.numel(), *(getattr(trace, c)[keep] for c in (
+            "op", "unit", "dtype", "dst", "addr", "size", "level", "hit",
+            "bank", "mshr")),
+        torch.zeros(keep.numel() + 1, dtype=torch.int64),
+        trace.src_tag[:0], trace.src_val[:0], trace.src_kind[:0],
+        n_regs=trace.n_regs)
+
+
+PRICE_EDGES = ("empty host_seqs", "no candidates", "no memory row",
+               "empty trace", "host_seqs on the CPU")
+
+
+@pytest.mark.parametrize("case", PRICE_EDGES)
+def test_price_counts_edge_cases_match_present_chain(case):
+    if case in ("empty trace", "no memory row"):
+        trace, _ = _priced_trace("NB")
+        keep = torch.nonzero(trace.level == 0).flatten()
+        if case == "empty trace":
+            keep = keep[:0]
+        trace = _rows_of(trace, keep)
+        assert int((trace.level > 0).sum()) == 0
+        hs, seqs = torch.arange(0, keep.numel(), 3), []
+    else:
+        trace, analysis = _priced_trace("KM")
+        result = analysis.select(OffloadConfig())
+        hs = reshape(trace, result).host_seqs
+        seqs = _converted_seqs(result)
+        if case == "empty host_seqs":
+            hs = torch.zeros(0, dtype=torch.int64)
+        elif case == "no candidates":
+            result = analysis.select(OffloadConfig(cim_set=frozenset()))
+            assert not result.candidates
+            hs, seqs = reshape(trace, result).host_seqs, []
+        else:
+            assert hs.device.type == "cpu" and seqs
+    conv = torch.tensor(seqs, dtype=torch.int64)
+    got = dataclasses.asdict(count_trace(trace, hs, conv))
+    assert got == _present_chain(trace, hs, seqs)
+    if case == "empty host_seqs":
+        assert got["host_units"] == [0] * len(UNITS) and not got["host_mem"]
+    if case == "no memory row":
+        assert not got["mem"] and not got["host_mem"]
+
+
+@pytest.mark.parametrize("bad", ("unit 16", "unit -1", "level 4",
+                                 "host_seqs past the end", "conv below 0"))
+def test_price_counts_refuses_what_the_trace_does_not_hold(bad):
+    unit, level, op = [0, 3, 7, 10], [0, 1, 2, 3], [2, 0, 1, 0]
+    hs = torch.tensor([0, 2], dtype=torch.int64)
+    conv = torch.tensor([1, 3], dtype=torch.int64)
+    if bad.startswith("unit"):
+        unit[1] = int(bad.split()[1])
+    elif bad == "level 4":
+        level[2] = 4
+    elif bad == "host_seqs past the end":
+        hs = torch.tensor([0, 4], dtype=torch.int64)
+    else:
+        conv = torch.tensor([-1], dtype=torch.int64)
+    t = _tiny_trace(unit, level, op)
+    with pytest.raises(ValueError, match="price_counts"):
+        price_counts(t.unit, t.level, t.op, hs, conv)
+
+
+def test_price_counts_layout_of_a_hand_counted_trace():
+    """Each slot of the buffer on four rows counted by hand."""
+    t = _tiny_trace([0, 3, 7, 10], [0, 1, 2, 3], [2, 0, 1, 0])
+    got = price_counts(t.unit, t.level, t.op,
+                       torch.tensor([1, 3, 3], dtype=torch.int64),
+                       torch.tensor([0, 1, 1, 2], dtype=torch.int64))
+    want = [0] * pc_mod.N_OUT
+    for u in (0, 3, 7, 10):
+        want[pc_mod.UNITS_ALL + u] += 1
+    for u in (3, 10, 10):
+        want[pc_mod.UNITS_HOST + u] += 1
+    for lv, st in ((1, 0), (2, 1), (3, 0)):
+        want[pc_mod.MEM_ALL + 2 * lv + st] += 1
+    for lv, st in ((1, 0), (3, 0), (3, 0)):
+        want[pc_mod.MEM_HOST + 2 * lv + st] += 1
+    want[pc_mod.MEM_ROWS] = 3
+    want[pc_mod.CONV_L1] = 2
+    assert got == want

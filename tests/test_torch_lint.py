@@ -680,6 +680,7 @@ def test_accel_wrappers_name_their_plain_versions():
         ("place.py", "repro_torch.core.accel.place:_plain, batched"),
         ("place.py", "repro_torch.core.accel.place:_plain, batched"),
         ("place.py", "repro_torch.core.accel.place:_plain, batched"),
+        ("price_counts.py", "repro_torch.core.accel.price_counts:_plain"),
         ("replay.py",
          "repro_torch.core.cache:CacheHierarchy.replay, batched")]
     disabled = sorted(c for c in comments.values()
