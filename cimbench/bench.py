@@ -1,8 +1,11 @@
 """One run of one cell: set-up, the measured window, the metrics, the
 check against the reference, and the result line.
 
-:func:`run_cell` does the work on any device; ``cimbench/run.py`` is the
-command, which insists on the card.
+:func:`run_cell` keeps what every kind of configuration shares (the
+set-up clock, the window and its failures, the tracers, the readers, the
+check for forbidden modules, the result line) and asks the cell's kind
+(:mod:`cimbench.kinds`) for the rest.  It does the work on any device;
+``cimbench/run.py`` is the command, which insists on the card.
 """
 from __future__ import annotations
 
@@ -13,11 +16,9 @@ import random
 import sys
 import time
 import traceback
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
-import numpy as np
-
-from cimbench import check, generator
+from cimbench import kinds
 from cimbench.manifest import Manifest, ROOT
 from cimbench.yardstick import self_time_by_cat
 
@@ -33,16 +34,17 @@ class RunView:
     (the design points), ``seconds`` (its host-clock duration) and
     ``work`` (the virtual instructions of its sampled analyses, else 0;
     a sampled unit's points are its analyses).
-    ``spans``, ``device`` and ``k1_launches`` are set in a traced run
-    only: the program's spans of the window, its
-    :class:`cimbench.devtrace.DeviceTrace` (``None`` off the card), and
-    one ``(accesses, geometries)`` pair per replay-kernel launch."""
+    ``spans`` and ``device`` are set in a traced run only: the program's
+    spans of the window and its :class:`cimbench.devtrace.DeviceTrace`
+    (``None`` off the card).  A traced run also carries, as attributes,
+    the fields its kind's port gives (``traced_fields``): for the CiM
+    kind ``k1_launches``, one ``(accesses, geometries)`` pair per
+    replay-kernel launch."""
     units: List[Dict]
     window_s: float
     setup_s: float
     spans: Optional[List[Dict]] = None
     device: Optional[object] = None
-    k1_launches: Optional[List[Tuple[int, int]]] = None
 
     @property
     def n_points(self) -> int:
@@ -80,17 +82,22 @@ class GcPause:
 
 
 def keep_two(units: List[Dict], held: Optional[int],
-             draw: random.Random) -> int:
+             draw: random.Random, release: Callable[[Dict], None]) -> int:
     """After ``units`` gained its newest unit: the index of the unit whose
-    engines stay held, drawn uniformly from all of them so far (a
-    reservoir of one); every unit's engines but that one's and the
-    newest's are dropped."""
+    state stays held, drawn uniformly from all of them so far (a
+    reservoir of one); every unit but that one and the newest is
+    ``release``d."""
     newest, before = len(units) - 1, held
     if draw.randrange(len(units)) == 0:
         held = newest
     for j in {before, newest - 1} - {None, -1, held}:
-        units[j]["out"]["engines"] = None
+        release(units[j])
     return held
+
+
+def within(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
+    """Whether every number compared is at most its limit."""
+    return all(v <= limits[k] for k, v in numbers.items())
 
 
 def forbidden_modules() -> List[str]:
@@ -106,28 +113,28 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
              t_start: Optional[float] = None, control: bool = False) -> Dict:
     """Run cell ``name`` once; returns the result line's object.
 
-    ``control`` adds ``"control"``: the numbers compared when the
-    reference computed in float32 stands in for the program's records
-    (:mod:`cimbench.control`)."""
+    ``control`` adds ``"control"``, the numbers compared when the
+    kind's control, the reference one precision down, stands in for the
+    program, and ``"control_passes"``, whether they are within the
+    limits (:mod:`cimbench.control`)."""
     t_start = time.perf_counter() if t_start is None else t_start
     man = Manifest(root)
     cell = man.cell(name)
     config = man.config(cell["config"])
-    traffic = generator.Traffic(generator.load(man.traffic_path(
-        cell["traffic"])), config, seed)
+    kind = kinds.of(config)
+    traffic = kind.traffic(man.traffic_path(cell["traffic"]), config, seed)
 
     import torch
-    from cimbench import port
+    from cimbench import program
     from cimbench.devtrace import DeviceTrace
-    from cimbench.ref.pipeline import Reference
 
     if device.startswith("cuda"):
-        built = port.build_kernels()
+        built = kind.build_kernels()
         if built:
             _log(f"built {sorted(built)} in {max(built.values()):.1f} s")
-    sut = port.Port(traffic, config, device)
+    sut = kind.port(traffic, config, device)
     n_warm = sut.warm()
-    port.synchronize(device)
+    program.synchronize(device)
     setup_s = time.perf_counter() - t_start
     _log(f"set-up {setup_s:.3f} s ({n_warm} warm points)")
 
@@ -135,17 +142,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     failed = attempted = 0
     tracer = None
     if trace:
-        tracer = port.start_tracing()
+        tracer = program.start_tracing()
         epoch_ns = time.time_ns() - time.perf_counter_ns()
-    # a pass's engine holds every artifact it built: the window keeps
-    # those of the last unit and of one unit drawn from all of them (a
-    # reservoir of one), so that its heap does not grow; a sampled
-    # window runs few units, and keeps every one
-    drops = (traffic.engine_kind == "per_unit"
-             and traffic.params.get("sampling") is None)
+    drops = not kind.keeps_every_unit(traffic)
     draw, held = random.Random(f"{seed}:keep"), None
     gc_pause = GcPause() if trace else None
-    launches0 = port.launch_counts()
+    launches0 = program.launch_counts()
     with DeviceTrace(device if trace else "cpu") as dt:
         t_win = time.perf_counter()
         for unit in traffic.units():
@@ -153,7 +155,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             t0 = time.perf_counter()
             try:
                 out = sut.run_unit(unit)
-                port.synchronize(device)
+                program.synchronize(device)
             except Exception:        # noqa: BLE001 - a failed unit is counted
                 failed += len(unit["points"])
                 _log(traceback.format_exc())
@@ -163,15 +165,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                 units.append(dict(unit, seconds=t1 - t0, out=out,
                                   work=out.get("work", 0)))
                 if drops:
-                    held = keep_two(units, held, draw)
+                    held = keep_two(units, held, draw, sut.release)
             if t1 - t_win >= seconds:
                 break
         window_s = time.perf_counter() - t_win
     if gc_pause is not None:
         gc_pause.close()
     launches = {k: v - launches0.get(k, 0)
-                for k, v in port.launch_counts().items()}
-    spans = port.stop_tracing(tracer) if tracer is not None else None
+                for k, v in program.launch_counts().items()}
+    spans = program.stop_tracing(tracer) if tracer is not None else None
     sut.read_back(units)
     peak = (torch.cuda.max_memory_allocated()
             if device.startswith("cuda") else 0)
@@ -185,21 +187,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
          f"launches {launches}; unit seconds "
          f"{times if len(times) <= 20 else times[:20] + ['...']}")
 
-    ref = Reference(config["banks"], config["mshrs"])
+    ref = kind.reference(config)
     view = RunView(units=units, window_s=window_s, setup_s=setup_s)
-    kind = "end_to_end"
+    group = "end_to_end"
     breakdown = None
     if trace:
-        kind = "per_layer"
+        group = "per_layer"
         view.spans = spans
         view.device = dt if dt.events is not None else None
-        view.k1_launches = sut.k1_launches(units, spans, ref)
+        for field, value in sut.traced_fields(units, spans, ref).items():
+            setattr(view, field, value)
         if view.device is not None:
             breakdown = {"device_ops": dt.top_ops(),
                          "idle_gaps": dt.idle_by_host(
                              spans + gc_pause.spans(epoch_ns), epoch_ns)}
     metrics = {}
-    for m in man.metrics(name, kind):
+    for m in man.metrics(name, group):
         value = man.reader(m["name"])(view)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
@@ -209,10 +212,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     sample = sut.sample(units, ref, seed)
     del units, view, sut
     gc.collect()
-    numbers = check.compare(sample, ref)
-    control_numbers = (check.compare(sample, ref, float_type=np.float32,
-                                     stand_in=True) if control else None)
-    correct = check.verdict(numbers) and failed == 0
+    numbers = kind.compare(sample, ref)
+    control_numbers = kind.control(sample, ref) if control else None
+    correct = within(numbers, kind.LIMITS) and failed == 0
     found = forbidden_modules()
     if found:
         _log(f"cimbench: the run loaded {found}")
@@ -230,9 +232,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         out["breakdown"] = breakdown
     if control_numbers is not None:
         out["control"] = control_numbers
-    out["checks"] = {k: {"value": v, "limit": check.LIMITS[k]}
+        out["control_passes"] = within(control_numbers, kind.LIMITS)
+    out["checks"] = {k: {"value": v, "limit": kind.LIMITS[k]}
                      for k, v in numbers.items()}
     for k, v in numbers.items():
-        _log(f"check {k} {v} limit {check.LIMITS[k]}")
+        _log(f"check {k} {v} limit {kind.LIMITS[k]}")
     return out
 

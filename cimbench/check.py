@@ -1,6 +1,7 @@
-"""What decides ``correct``: the program's outputs from the window against
-the plain reference (:mod:`cimbench.ref`), worked out again from the
-committed structural traces.
+"""What decides ``correct`` in a cell of the CiM kind
+(:mod:`cimbench.kinds.cim`): the program's outputs from the window
+against the plain reference (:mod:`cimbench.ref`), worked out again from
+the committed structural traces.
 
 Every number compared is exact, so every limit is 0:
 
@@ -330,7 +331,3 @@ def compare(sample: Sample, ref: Reference, float_type=float,
         for k, v in got.items():
             out[k] = max(out[k], v) if k == "record_gap" else out[k] + v
     return out
-
-
-def verdict(numbers: Dict[str, float]) -> bool:
-    return all(numbers[k] <= LIMITS[k] for k in numbers)

@@ -2,9 +2,10 @@
 
 For each seed, one run of the cell (set-up, a window of ``--seconds``,
 the check) in one process; it prints, per seed, the numbers compared for
-the program (the lower readings) and for the control: the reference
-computed in float32, one precision below the configuration's float64
-pricing, put in the program's place.  The control has to fail.
+the program (the lower readings) and for the control of the cell's kind
+(:mod:`cimbench.kinds`): for the CiM kind the reference computed in
+float32, one precision below the configuration's float64 pricing, put in
+the program's place.  The control has to fail.
 
     python3 cimbench/control.py --workload <cell> --seeds 1,2,3 \\
         --seconds 10
@@ -25,7 +26,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=10.0)
     args = ap.parse_args(argv)
     _run._env()
-    from cimbench import check
     from cimbench.bench import run_cell
     rows = []
     for seed in (int(s) for s in args.seeds.split(",")):
@@ -34,7 +34,7 @@ def main(argv=None) -> int:
         program = {k: v["value"] for k, v in out["checks"].items()}
         rows.append({"seed": seed, "correct": out["correct"],
                      "program": program, "control": out["control"],
-                     "control_fails": not check.verdict(out["control"])})
+                     "control_fails": not out["control_passes"]})
         print(json.dumps(rows[-1]), flush=True)
     print(json.dumps({"workload": args.workload, "seeds": len(rows),
                       "program_correct": all(r["correct"] for r in rows),

@@ -1,8 +1,8 @@
-"""The one traffic generator: units of work drawn from a mix's parameters
-and the run's seed.
+"""The CiM kind's traffic generator (:mod:`cimbench.kinds.cim`): units of
+work drawn from a mix's parameters and the run's seed.
 
-A mix is a JSON file, ``cimbench/traffic/<mix>.json``; this module alone
-reads it.  Its keys:
+A mix of a CiM cell is a JSON file, ``cimbench/traffic/<mix>.json``;
+this module alone reads it.  Its keys:
 
 ``unit``
     ``"pass"``: a unit is a set of design points priced by one

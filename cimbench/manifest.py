@@ -1,17 +1,25 @@
-"""``BENCHMARK.json`` and the files it names: each configuration, mix and
-metric is found by its name, so a new one is new files plus new entries.
+"""``BENCHMARK.json`` and the files it names: each configuration, kind,
+mix and metric is found by its name, so a new one is new files plus new
+entries.
 
-* a configuration: its entry's ``file`` (``cimbench/configs/<name>.json``);
-* a traffic mix: ``cimbench/traffic/<mix>.json``;
+* a configuration: its entry's ``file`` (``cimbench/configs/<name>.json``),
+  whose optional ``"kind"`` (``"cim"`` where absent) names the module
+  ``cimbench/kinds/<kind>.py`` that builds, drives and checks it;
+* a traffic mix: ``cimbench/traffic/<mix>.json``, read by its cell's kind;
 * a metric, end-to-end or per-layer: ``cimbench/metrics/<name>.py``, a
   module with ``read(run) -> float | None`` (``run`` is a
   :class:`cimbench.bench.RunView`).
 
-``cimbench/pending.json`` is ``BENCHMARK.json`` as it would stand with
-the cells that were built and proved correct but whose runs spread wider
-than a bound can hold (``PERF.md`` gives their readings): the CPU tests
-run them as they run the benchmark's own, and a cell is admitted by
-copying its entries into ``BENCHMARK.json``.
+A run reads ``BENCHMARK.json`` alone.  ``cimbench/pending.json`` holds
+only the entries that wait for admission (cells built and proved correct
+whose runs spread wider than a bound can hold, and the configurations and
+metrics only they use; ``PERF.md`` gives their readings), under the same
+four groups, and never a name that ``BENCHMARK.json`` has.  A pending
+cell that would report metrics ``BENCHMARK.json`` already lists names
+them in its entry's ``"reports"``.  :func:`union` is what the CPU tests
+run.  A cell is admitted by moving its entries from ``pending.json`` to
+``BENCHMARK.json``, less ``"reports"``, and adding its name to the
+``workloads`` of each metric that ``"reports"`` named.
 """
 from __future__ import annotations
 
@@ -22,6 +30,30 @@ from typing import Dict, List
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
+#: the groups of entries, each a list of objects with a ``name``
+GROUPS = ("configs", "workloads", "end_to_end", "per_layer")
+
+
+def union(root=ROOT) -> Dict:
+    """``BENCHMARK.json`` with ``cimbench/pending.json``'s entries after
+    its own, group by group, and each pending cell in the ``workloads``
+    of the metrics its ``"reports"`` names (the key itself dropped)."""
+    root = pathlib.Path(root)
+    doc = json.loads((root / "BENCHMARK.json").read_text())
+    pending = json.loads((root / "cimbench" / "pending.json").read_text())
+    out = dict(doc, **{g: doc[g] + pending.get(g, []) for g in GROUPS})
+    reported: Dict[str, List[str]] = {}
+    cells = []
+    for cell in out["workloads"]:
+        cell = dict(cell)
+        for metric in cell.pop("reports", []):
+            reported.setdefault(metric, []).append(cell["name"])
+        cells.append(cell)
+    out["workloads"] = cells
+    for g in ("end_to_end", "per_layer"):
+        out[g] = [dict(m, workloads=m["workloads"] + reported[m["name"]])
+                  if m["name"] in reported else m for m in out[g]]
+    return out
 
 
 class Manifest:

@@ -1,10 +1,12 @@
-"""The system under test: the port's DSE engine, driven by the units of
-:mod:`cimbench.generator`, and read back after the window.
+"""The CiM kind's system under test (:mod:`cimbench.kinds.cim`): the
+port's DSE engine, driven by the units of :mod:`cimbench.generator`, and
+read back after the window.
 
-Only this module imports ``repro_torch``; it takes from it the engine,
-its analysis cache, the sampled backend's artifacts, the obs spans and
-the launch counters, and nothing of its arithmetic.  (The device trace,
-:mod:`cimbench.devtrace`, reads the card through ``torch.profiler``.)
+It takes from ``repro_torch`` the engine, its analysis cache and the
+sampled backend's artifacts, and nothing of its arithmetic; the spans and
+launch counters every kind reads come through :mod:`cimbench.program`.
+(The device trace, :mod:`cimbench.devtrace`, reads the card through
+``torch.profiler``.)
 """
 from __future__ import annotations
 
@@ -14,8 +16,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import obs
-from repro_torch.core import accel
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.host_model import HostModel
 from repro_torch.core.sampling import SamplingSpec
@@ -115,6 +115,11 @@ class Port:
             out["work"] += self.virtual_instructions
         return out
 
+    @staticmethod
+    def release(unit: Dict) -> None:
+        """Drop the engines that hold a unit's artifacts."""
+        unit["out"]["engines"] = None
+
     def read_back(self, units: List[Dict]) -> None:
         """Once the window has closed: what each sampled analysis's skim
         counted (``virtual``) and its windowed stream's accesses, K1's
@@ -202,6 +207,12 @@ class Port:
         return check.take_sample(self, units, ref, seed,
                                  self.traffic.unit_kind)
 
+    def traced_fields(self, units: List[Dict], spans: List[Dict], ref
+                      ) -> Dict:
+        """What a traced run's readers read beside the spans:
+        ``k1_launches``."""
+        return {"k1_launches": self.k1_launches(units, spans, ref)}
+
     def k1_launches(self, units: List[Dict], spans: List[Dict], ref
                     ) -> List[Tuple[int, int]]:
         """``(accesses, geometries)`` of each replay-kernel launch of the
@@ -224,27 +235,3 @@ class Port:
             st = ref.structural(a["workload"])
             out.append((int(st.columns.mem_mask.sum()), n_geo))
         return out
-
-
-def start_tracing():
-    """Turn the program's span tracer on; returns it."""
-    return obs.enable()
-
-
-def stop_tracing(tracer) -> List[Dict]:
-    """The finished spans, with the tracer turned off; raises if it
-    dropped any."""
-    spans, dropped = tracer.spans(), tracer.dropped
-    obs.disable()
-    if dropped:
-        raise RuntimeError(f"the tracer dropped {dropped} spans")
-    return spans
-
-
-def launch_counts() -> Dict[str, int]:
-    return accel.launch_counts()
-
-
-def synchronize(device: str) -> None:
-    if device.startswith("cuda"):
-        torch.cuda.synchronize()

@@ -1,17 +1,33 @@
 """BENCHMARK.json against the benchmark's contract: keys, names, units,
-bounds, the files each entry names, and the run-time budget; and
-``cimbench/pending.json`` (BENCHMARK.json with the cells not admitted
-yet) against the same contract, and against BENCHMARK.json."""
+bounds, the files each entry names, and the run-time budget; the same
+for BENCHMARK.json with the entries of ``cimbench/pending.json`` (the
+cells not admitted yet) after its own; and pending.json against
+BENCHMARK.json: no name in both, every entry whole, every pending cell's
+configuration, mix and metrics found in the union, and the metrics it
+``reports`` listed in BENCHMARK.json."""
 import json
 import pathlib
 import re
 
 import pytest
 
+from cimbench.manifest import GROUPS, union
+
 ROOT = pathlib.Path(__file__).resolve().parents[2]
+PENDING = json.loads((ROOT / "cimbench" / "pending.json").read_text())
+#: "pending.json": the union, as the CPU tests run it
 DOCS = {"BENCHMARK.json": json.loads((ROOT / "BENCHMARK.json").read_text()),
-        "pending.json": json.loads((ROOT / "cimbench" / "pending.json")
-                                   .read_text())}
+        "pending.json": union(ROOT)}
+#: the keys each group's entries have (a metric may add ``workloads``)
+KEYS = {"configs": {"name", "source", "file", "reduced", "why"},
+        "workloads": {"name", "config", "traffic", "chips", "why"},
+        "end_to_end": {"name", "unit", "better", "bound", "source"},
+        "per_layer": {"name", "unit", "better", "source", "layer", "moves",
+                      "workloads"}}
+#: the keys a pending entry may add: an end-to-end metric ``workloads``,
+#: a cell the admitted metrics it ``reports``
+MAY_ADD = {"configs": set(), "workloads": {"reports"},
+           "end_to_end": {"workloads"}, "per_layer": set()}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 TEXT = re.compile(r"^[^\n\t]{1,200}$")
@@ -126,17 +142,42 @@ def test_setup_bound_and_layers_named_alike(doc):
     assert len({name.lower() for name in layers}) == len(layers)
 
 
-def test_pending_holds_the_benchmark_as_it_stands():
-    """An entry of BENCHMARK.json stands in pending.json as it is, but
-    for the cells it lists (pending.json's may list more)."""
-    bench, pending = DOCS["BENCHMARK.json"], DOCS["pending.json"]
-    for key in ("command", "paths", "run_seconds"):
-        assert bench[key] == pending[key]
-    for group in ("configs", "workloads", "end_to_end", "per_layer"):
-        theirs = {x["name"]: x for x in pending[group]}
-        for x in bench[group]:
-            other = theirs[x["name"]]
-            assert {k: v for k, v in x.items() if k != "workloads"} == \
-                {k: v for k, v in other.items() if k != "workloads"}
-            assert set(x.get("workloads", [])) <= \
-                set(other.get("workloads", []))
+def test_pending_holds_only_groups_of_entries_the_benchmark_lacks():
+    assert set(PENDING) <= set(GROUPS)
+    bench = DOCS["BENCHMARK.json"]
+    for group in GROUPS:
+        ours = {x["name"] for x in bench[group]}
+        assert not ours & {x["name"] for x in PENDING.get(group, [])}
+
+
+@pytest.mark.parametrize("group,x", [
+    pytest.param(g, x, id=f"{g}:{x['name']}")
+    for g in GROUPS for x in PENDING.get(g, [])])
+def test_pending_entry_has_its_groups_keys(group, x):
+    assert KEYS[group] <= set(x) <= KEYS[group] | MAY_ADD[group]
+
+
+@pytest.mark.parametrize("cell", PENDING.get("workloads", []),
+                         ids=lambda c: c["name"])
+def test_pending_cell_reports_metrics_the_benchmark_lists(cell):
+    bench = DOCS["BENCHMARK.json"]
+    listed = {m["name"]: m for m in bench["end_to_end"] + bench["per_layer"]}
+    for name in cell.get("reports", []):
+        assert "workloads" in listed[name]
+        assert cell["name"] not in listed[name]["workloads"]
+
+
+@pytest.mark.parametrize("cell", PENDING.get("workloads", []),
+                         ids=lambda c: c["name"])
+def test_pending_cell_resolves_in_the_union(cell):
+    doc = DOCS["pending.json"]
+    (cfg,) = [c for c in doc["configs"] if c["name"] == cell["config"]]
+    assert (ROOT / cfg["file"]).is_file()
+    assert (ROOT / "cimbench" / "traffic" / f"{cell['traffic']}.json"
+            ).is_file()
+    metrics = [m for m in doc["end_to_end"] + doc["per_layer"]
+               if reports(m, cell["name"])]
+    names = {m["name"] for m in metrics}
+    assert "setup_s" in names and len(names) >= 3
+    for m in metrics:
+        assert (ROOT / "cimbench" / "metrics" / f"{m['name']}.py").is_file()

@@ -26,8 +26,10 @@ def span(sid, parent, dur, cat, name="s", ts=0, **attrs):
 
 
 def view(units, window_s=10.0, spans=None, device=None, k1=None):
-    return RunView(units=units, window_s=window_s, setup_s=3.5,
-                   spans=spans, device=device, k1_launches=k1)
+    run = RunView(units=units, window_s=window_s, setup_s=3.5, spans=spans,
+                  device=device)
+    run.k1_launches = k1            # the CiM kind's traced field
+    return run
 
 
 def test_self_time_subtracts_children_and_clamps():
@@ -137,12 +139,13 @@ def test_every_metric_has_a_reader():
 def test_a_window_holds_the_engines_of_a_drawn_unit_and_the_last():
     import random
     from cimbench.bench import keep_two
+    from cimbench.port import Port
     drawn = set()
     for seed in range(200):
         draw, held, units = random.Random(seed), None, []
         for n in range(12):
             units.append({"out": {"engines": [n]}})
-            held = keep_two(units, held, draw)
+            held = keep_two(units, held, draw, Port.release)
             kept = {i for i, u in enumerate(units) if u["out"]["engines"]}
             assert kept == {held, n}
         drawn.add(held)

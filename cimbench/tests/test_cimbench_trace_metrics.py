@@ -1,8 +1,9 @@
 """The readers of Algorithm 1's and pricing's inner spans, of pricing's
 time off the CPU and of the collector's pauses, on spans built by hand:
 their arithmetic, and ``None`` (never 0) for spans that carry no
-``cpu_ns``, as a tracer without these readings records them."""
-import json
+``cpu_ns``, as a tracer without these readings records them; and every
+per-layer entry of BENCHMARK.json beside its reader, its layer and the
+cells that report what it moves."""
 import pathlib
 
 import pytest
@@ -12,7 +13,6 @@ from cimbench.manifest import Manifest
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 MAN = Manifest(ROOT)
-UNLISTED = json.loads((ROOT / "cimbench" / "unlisted.json").read_text())
 MS = 1_000_000
 READERS = ("partition_ms.sweep", "place_ms.sweep", "price_baseline_ms.sweep",
            "price_cim_ms.sweep", "price_macr_ms.sweep",
@@ -94,27 +94,25 @@ LAYERS = {"partition_ms.sweep": "Algorithm 1",
 
 @pytest.mark.parametrize("name", READERS)
 def test_each_reader_has_its_entry(name):
-    entry = next(m for m in UNLISTED["per_layer"] if m["name"] == name)
+    entry = next(m for m in MAN.doc["per_layer"] if m["name"] == name)
     assert entry["unit"] == "ms/point" and entry["better"] == "lower"
     assert entry["source"] == "program_span"
     assert entry["moves"] == "points_per_s"
     assert entry["layer"] == LAYERS.get(name, "pricing")
 
 
-@pytest.mark.parametrize("entry", UNLISTED["per_layer"],
-                         ids=[m["name"] for m in UNLISTED["per_layer"]])
-def test_unlisted_entry_fits_beside_the_benchmark(entry):
-    """The entry could be appended to ``per_layer`` as it stands: a new
-    name, its reader present, its layer named as the benchmark names it,
-    and only cells that report ``points_per_s``."""
+@pytest.mark.parametrize("entry", MAN.doc["per_layer"],
+                         ids=[m["name"] for m in MAN.doc["per_layer"]])
+def test_per_layer_entry_fits_the_benchmark(entry):
+    """The entry's reader is there, its layer is spelt as every other
+    metric of that layer spells it, and every cell it lists reports the
+    end-to-end metric it moves."""
     doc = MAN.doc
-    assert [m["name"] for m in UNLISTED["per_layer"]] == list(READERS)
-    assert entry["name"] not in {m["name"] for m in doc["per_layer"]}
-    assert set(entry) == {"name", "unit", "better", "source", "layer",
-                          "moves", "workloads"}
-    assert entry["layer"] in {m["layer"] for m in doc["per_layer"]} | {
-        "collector"}
-    reporting = {c for m in doc["end_to_end"] if m["name"] == "points_per_s"
-                 for c in m.get("workloads", [])}
-    assert entry["workloads"] and set(entry["workloads"]) <= reporting
     assert (ROOT / "cimbench" / "metrics" / f"{entry['name']}.py").is_file()
+    assert {m["layer"] for m in doc["per_layer"]
+            if m["layer"].lower() == entry["layer"].lower()} == \
+        {entry["layer"]}
+    moves = next(m for m in doc["end_to_end"] if m["name"] == entry["moves"])
+    cells = {c["name"] for c in doc["workloads"]}
+    assert entry["workloads"]
+    assert set(entry["workloads"]) <= set(moves.get("workloads", cells))

@@ -1,40 +1,76 @@
-"""The one traffic generator: a seed gives one sequence of units, other
-seeds others, and each mix keeps its promises (no geometry twice in a
-pass run, no (program, geometry) pair twice in a request run, clocks
-re-scaled as the presets are)."""
+"""The CiM kind's traffic generator: a seed gives one sequence of units,
+other seeds others, the same as before configurations had kinds, and each
+mix keeps its promises (no geometry twice in a pass run, no (program,
+geometry) pair twice in a request run, clocks re-scaled as the presets
+are)."""
+import hashlib
 import itertools
 import json
 import pathlib
 
 import pytest
 
-from cimbench import generator
+from cimbench import generator, kinds
+from cimbench.manifest import union
 from cimbench.ref.host_model import HOST_PRESETS
 from cimbench.yardstick import scale_host_clock
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 #: the benchmark's cells and those not admitted yet
-DOC = json.loads((ROOT / "cimbench" / "pending.json").read_text())
+DOC = union(ROOT)
 CONFIGS = {c["name"]: json.loads((ROOT / c["file"]).read_text())
            for c in DOC["configs"]}
+#: the cells of the CiM kind, whose mixes this generator reads
+CIM = [c for c in DOC["workloads"]
+       if CONFIGS[c["config"]].get("kind", kinds.DEFAULT) == "cim"]
+#: sha256 of the JSON (sorted keys) of the first 20 units each mix drew
+#: at seeds 1, 2 and 3 before the harness asked configurations for
+#: their kind
+UNITS_AT = {
+    "exact-geometry": (
+        "98af237e903bc939f79a6ee03f6c998c1ea7f52358886f27ae805c175f205235",
+        "8b6c782af5583902f25dfb1c9a49b0ef9483bb8fc2e36367304261c2f11da711",
+        "bafef99446d64a8df8b2029164f0d7011e11adf715efd8f1b673032040e491b9"),
+    "sampled-km256": (
+        "7f39bfbebc9410986310d793c1822552746d471a47c76cb236a182fe242e8dcb",
+        "59bc0a326dd1f00836165869790fe64065cdb1eff871ba2bb54e665677d42fc5",
+        "542bb8815bb65cd122e0e95f056b936fb15d9360db53dc597bbc4d4bec8d0eaa"),
+    "exact-points": (
+        "b5c38787a844c9553fb6577cc9f7e3aa83f8e88c4f047aecfb93ec8ea789e200",
+        "16b32f90feb48158a89a576a49a1f30e338287ebbed4b91251ee5c35a64a03ec",
+        "5474f730927d77aeaaa3a9f581c6f913b733a3e36d391245e1d2bd106d6a4829"),
+    "exact-pricing": (
+        "e590106eccab60adb1ae80c22bb342c12f22f3052144690b524dfb2bd4acc028",
+        "728b2b7da1e11938db05279fab309e2ea4abb1a0e027daebd8796fe8e0810833",
+        "82d67641f847479e12236d1e512df4db34d285598fcdef72b639e07e3fb8317d"),
+}
 
 
 def traffic(cell, seed):
-    params = generator.load(ROOT / "cimbench" / "traffic"
-                            / f"{cell['traffic']}.json")
-    return generator.Traffic(params, CONFIGS[cell["config"]], seed)
+    config = CONFIGS[cell["config"]]
+    return kinds.of(config).traffic(
+        ROOT / "cimbench" / "traffic" / f"{cell['traffic']}.json", config,
+        seed)
 
 
 def first(cell, seed, n=4):
     return list(itertools.islice(traffic(cell, seed).units(), n))
 
 
-@pytest.mark.parametrize("cell", DOC["workloads"], ids=lambda c: c["name"])
+@pytest.mark.parametrize("cell", CIM, ids=lambda c: c["name"])
 def test_a_seed_repeats_and_other_seeds_differ(cell):
     big = 2 ** 31 + 12345
     assert first(cell, big) == first(cell, big)
     assert first(cell, big) != first(cell, big + 1)
     assert traffic(cell, 7).warm_points() == traffic(cell, 8).warm_points()
+
+
+@pytest.mark.parametrize("mix,seed", [
+    pytest.param(m, s, id=f"{m}-{s}") for m in UNITS_AT for s in (1, 2, 3)])
+def test_a_mix_draws_the_units_it_drew_before_kinds(mix, seed):
+    cell = next(c for c in CIM if c["traffic"] == mix)
+    got = json.dumps(first(cell, seed, n=20), sort_keys=True).encode()
+    assert hashlib.sha256(got).hexdigest() == UNITS_AT[mix][seed - 1]
 
 
 def test_pass_geometries_never_repeat_in_a_run():
