@@ -1,0 +1,7 @@
+"""Wall time of the spans ``tpu.cost`` (``analyze_graph``: FLOPs, bytes,
+collectives of the recorded graph), in ms per analysis (traced run)."""
+from cimbench.accel_layer import span_ms_per_analysis
+
+
+def read(run):
+    return span_ms_per_analysis(run, "tpu.cost")

@@ -18,7 +18,7 @@ class MoEConfig:
     expert_d_ff: int = 0
     n_shared_experts: int = 0          # shared (always-on) experts, 0 = none
     capacity_factor: float = 1.25
-    impl: str = "gather"               # "gather" (argsort dispatch) | "einsum" (one-hot dispatch)
+    impl: str = "gather"               # "gather" (argsort dispatch) | "einsum" (one-hot dispatch) | "dropless" (hybrid_moe: moe.granite_moe)
     router_jitter: float = 0.0
 
 
@@ -35,7 +35,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                        # dense | moe | ssm | hybrid | encdec | vlm
+    family: str                        # dense | moe | ssm | hybrid | encdec | vlm | hybrid_moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -136,6 +136,63 @@ class ModelConfig:
         all_experts = 3 * d * e.expert_d_ff * (e.n_experts + e.n_shared_experts) * L
         active = 3 * d * e.expert_d_ff * (e.top_k + e.n_shared_experts) * L
         return total - all_experts + active
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """A decoder whose mixer is chosen per layer by a pattern (Mamba-2 or
+    attention) and whose every layer ends in a dropless mixture of experts
+    with a shared expert, as Granite-4.0-H (``granitemoehybrid``) has it.
+    A subclass, so the ten archs' configs and their reprs stay the
+    reference's field for field.
+
+    ``layer_types`` is the published pattern; the model runs its first
+    ``n_layers`` entries.  ``moe.n_experts`` is the router's width; a layer
+    holds the experts ``experts_held`` (all where empty) and computes only
+    their part of the result, as one chip of an expert-parallel group
+    does.  ``attention_multiplier`` scales the scores in place of
+    1/sqrt(head_dim); ``embedding_multiplier``, ``residual_multiplier``
+    and ``logits_scaling`` scale the embedding, each branch before its
+    residual add, and divide the logits."""
+    layer_types: Tuple[str, ...] = ()
+    experts_held: Tuple[int, ...] = ()
+    shared_d_ff: int = 0
+    ssm_groups: int = 1
+    attention_multiplier: float = 0.0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        """The mixer of each layer that runs."""
+        return self.layer_types[:self.n_layers]
+
+    @property
+    def held(self) -> Tuple[int, ...]:
+        return self.experts_held or tuple(range(self.moe.n_experts))
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm.n_heads * self.ssm.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        """x, B and C, which the Mamba-2 mixer convolves together."""
+        return self.ssm_inner + 2 * self.ssm_groups * self.ssm.d_state
+
+    def param_count(self) -> int:
+        """Parameters this configuration holds (held experts only)."""
+        d, e, s = self.d_model, self.moe, self.ssm
+        mamba = (d * (self.ssm_inner + self.conv_channels + s.n_heads)
+                 + self.conv_channels * (s.conv_dim + 1) + 3 * s.n_heads
+                 + self.ssm_inner + self.ssm_inner * d)
+        attn = 2 * d * self.q_dim + 2 * d * self.kv_dim
+        moe = (d * e.n_experts + 3 * d * e.expert_d_ff * len(self.held)
+               + 3 * d * self.shared_d_ff)
+        per_kind = {"mamba": mamba, "attention": attn}
+        return (self.padded_vocab * d + d
+                + sum(per_kind[t] + moe + 2 * d for t in self.pattern))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,17 @@
-"""Architecture registry: ``--arch <id>`` resolution + reduced smoke configs."""
+"""Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
+
+``ARCHS`` holds the ten archs that the tests hold to the reference
+package; ``PUBLISHED`` the configurations that run at their published
+widths only in the port (granite-4.0-h-small and its named cuts), which
+:func:`get_config` and :func:`reduced_config` resolve too."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (HybridMoEConfig, ModelConfig,
+                                      MoEConfig, SSMConfig)
+from repro_torch.configs import granite_4_0_h_small
 from repro_torch.configs import (
     llama4_scout_17b_a16e, moonshot_v1_16b_a3b, xlstm_125m, hymba_1_5b,
     qwen1_5_0_5b, gemma3_1b, yi_34b, phi4_mini_3_8b, seamless_m4t_large_v2,
@@ -18,12 +25,16 @@ _MODULES = (
 )
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.arch_id: m.CONFIG for m in _MODULES}
+PUBLISHED: Dict[str, ModelConfig] = {
+    c.arch_id: c for c in granite_4_0_h_small.CONFIGS}
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
-    return ARCHS[arch_id]
+    cfg = ARCHS.get(arch_id) or PUBLISHED.get(arch_id)
+    if cfg is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(ARCHS) + sorted(PUBLISHED)}")
+    return cfg
 
 
 def reduced_config(arch_id: str) -> ModelConfig:
@@ -32,6 +43,8 @@ def reduced_config(arch_id: str) -> ModelConfig:
     Small layers/width/experts/vocab — same block structure, same code paths.
     """
     cfg = get_config(arch_id)
+    if isinstance(cfg, HybridMoEConfig):
+        return granite_4_0_h_small.reduced(cfg)
     n_heads = min(cfg.n_heads, 4)
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
     # keep GQA grouping valid: heads must be a multiple of kv heads

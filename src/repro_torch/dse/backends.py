@@ -13,9 +13,11 @@ Twin of ``repro/dse/backends.py``:
   (:mod:`repro_torch.core.sampling.pipeline`);
 
   :class:`TpuBackend`        — the accelerator-mode adaptation: one graph
-  analysis per (workload, shape) — :func:`analyze_train_step` records the
-  arch registry's reduced train step as an ATen graph on the cache's
-  device and runs :func:`~repro_torch.core.hlo.fusion_candidates` and
+  analysis per (workload, shape, seed) — :func:`analyze_train_step`
+  records a train step on weights drawn from the seed (an arch id's
+  reduced config, or a configuration at its published widths) as an ATen
+  graph on the cache's device and runs
+  :func:`~repro_torch.core.hlo.fusion_candidates` and
   :func:`~repro_torch.core.hlo_cost.analyze_graph` over it — then
   per-:class:`~repro_torch.dse.space.TpuOption` fusion selection
   (``min_saved_bytes`` threshold + VMEM fit) and roofline/energy pricing
@@ -31,7 +33,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 import hashlib
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch import obs
 from repro_torch.core.host_model import HostModel
@@ -49,7 +51,7 @@ from repro_torch.dse.store import NAMESPACE, workload_fingerprint
 # recorder, fusion_candidates/analyze_graph, the selection rule or the
 # artifact schema changes: old TPU artifacts become unreachable while every
 # other backend's stay warm.
-TPU_ANALYSIS_VERSION = 1
+TPU_ANALYSIS_VERSION = 2
 
 
 class AnalysisBackend(abc.ABC):
@@ -343,44 +345,55 @@ class TpuSelection:
     vmem_bytes: float
 
 
-def record_train_step(cfg, batch: int, seq_len: int, device):
-    """Record ``make_train_step(cfg, TrainConfig())`` on an all-zeros train
-    state and a ``batch`` x ``seq_len`` batch as an ATen graph
+def record_train_step(cfg, batch: int, seq_len: int, device, seed: int = 0,
+                      observe: Optional[Callable] = None):
+    """Record ``make_train_step(cfg, TrainConfig())`` as an ATen graph
     (:class:`~repro_torch.core.hlo.Graph`), run eagerly on ``device`` with
-    real tensors (``"cuda"`` raises without a card).  The state and the
-    step's outputs are freed when it returns."""
+    real tensors (``"cuda"`` raises without a card): parameters drawn from
+    a generator seeded with ``seed``, zero moments and step, then a
+    ``batch`` x ``seq_len`` batch from the same generator (token ids
+    uniform over the vocabulary).  ``observe(new_state, metrics)``, if
+    given, sees the step's outputs before they are freed; the state and
+    the outputs are freed when this returns.  Span ``tpu.record``
+    (``n_eqns``, ``tokens``)."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.columnar import resolve_device
     from repro_torch.core.hlo import record_graph
     from repro_torch.models import inputs as minputs
-    from repro_torch.optim.tree import leaves
     from repro_torch.train import steps as steps_mod
 
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    state = steps_mod.init_train_state(gen, cfg, device=dev)
-    with torch.no_grad():
-        for t in leaves(state):
-            t.zero_()
-    data = minputs.make_train_batch(gen, cfg, batch=batch, seq_len=seq_len,
-                                    device=dev)
-    step = steps_mod.make_train_step(cfg, TrainConfig())
-    graph, _ = record_graph(step, state, data)
+    with obs.span("tpu.record", cat="tpu", workload=cfg.arch_id,
+                  tokens=batch * seq_len) as sp:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = steps_mod.init_train_state(gen, cfg, device=dev)
+        data = minputs.make_train_batch(gen, cfg, batch=batch,
+                                        seq_len=seq_len, device=dev)
+        step = steps_mod.make_train_step(cfg, TrainConfig())
+        graph, (new_state, metrics) = record_graph(step, state, data)
+        sp.set(n_eqns=len(graph.eqns))
+        if observe is not None:
+            observe(new_state, metrics)
     return graph
 
 
-def analyze_train_step(cfg, batch: int, seq_len: int,
-                       device) -> TpuWorkloadAnalysis:
+def analyze_train_step(cfg, batch: int, seq_len: int, device,
+                       seed: int = 0, observe: Optional[Callable] = None
+                       ) -> TpuWorkloadAnalysis:
     """Layer 1 of the accelerator-mode backend for one model config: the
     graph of :func:`record_train_step`, reduced to the numbers selection
-    and pricing need."""
+    and pricing need.  Spans ``tpu.fusion`` (``n_candidates``) and
+    ``tpu.cost``."""
     from repro_torch.core.hlo import fusion_candidates
     from repro_torch.core.hlo_cost import analyze_graph
 
-    graph = record_train_step(cfg, batch, seq_len, device)
-    rep = fusion_candidates(graph)
-    cost = analyze_graph(graph)
+    graph = record_train_step(cfg, batch, seq_len, device, seed, observe)
+    with obs.span("tpu.fusion", cat="tpu") as sp:
+        rep = fusion_candidates(graph)
+        sp.set(n_candidates=len(rep.candidates))
+    with obs.span("tpu.cost", cat="tpu"):
+        cost = analyze_graph(graph)
     return TpuWorkloadAnalysis(
         workload=cfg.arch_id, batch=batch, seq_len=seq_len,
         flops=cost.flops, total_bytes=rep.total_bytes,
@@ -391,16 +404,34 @@ def analyze_train_step(cfg, batch: int, seq_len: int,
                          c.saved_bytes) for c in rep.candidates))
 
 
+def model_config(workload: str, configs: Sequence = ()):
+    """The configuration a TPU workload records: one of ``configs`` whose
+    ``arch_id`` is ``workload``, else a ``registry.PUBLISHED``
+    configuration, both as they are, else the arch id's reduced config."""
+    from repro_torch.configs.registry import PUBLISHED, reduced_config
+    for cfg in configs:
+        if cfg.arch_id == workload:
+            return cfg
+    if workload in PUBLISHED:
+        return PUBLISHED[workload]
+    return reduced_config(workload)
+
+
 @dataclasses.dataclass(frozen=True)
 class TpuBackend(AnalysisBackend):
     """Accelerator-mode Eva-CiM: "does this model step benefit from
     VMEM-resident fusion, on which chip, at which aggressiveness".
 
     Workload names are arch ids from
-    :data:`repro_torch.configs.registry.ARCHS`; ``analyze`` records the
-    arch's *reduced* train step once per (workload, batch, seq_len) on the
-    cache's device (:func:`analyze_train_step`).  ``select`` realizes the
-    candidates that clear the point's
+    :data:`repro_torch.configs.registry.ARCHS`, whose *reduced* train step
+    is recorded, or names of :data:`repro_torch.configs.registry.PUBLISHED`,
+    recorded at their published widths (:func:`model_config`); ``analyze``
+    records it once per (workload, batch, seq_len, seed) on the cache's
+    device (:func:`analyze_train_step`), on weights drawn from ``seed``.
+    ``configs`` adds configurations recorded as given, each under its
+    ``arch_id``; ``observe`` (no part of the backend's identity) is handed
+    to :func:`record_train_step`.  ``select`` realizes the candidates that
+    clear the point's
     :class:`~repro_torch.dse.space.TpuOption` ``min_saved_bytes`` threshold
     *and* fit its (possibly scaled) VMEM.  ``price`` compares the unfused
     and fused steps under the option's chip: roofline bound time
@@ -415,6 +446,10 @@ class TpuBackend(AnalysisBackend):
     batch: int = 2
     seq_len: int = 32
     default_tpu: TpuOption = TpuOption.of("v5e")
+    seed: int = 0
+    configs: Tuple = ()
+    observe: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     name = "tpu"
 
@@ -426,19 +461,19 @@ class TpuBackend(AnalysisBackend):
     def _layer1_spec(self, workload: str) -> Dict:
         return {"backend": f"{NAMESPACE}.{self.name}",
                 "version": self.version, "workload": workload,
-                "fingerprint": arch_fingerprint(workload),
-                "shape": [self.batch, self.seq_len]}
+                "fingerprint": arch_fingerprint(workload, self.configs),
+                "shape": [self.batch, self.seq_len], "seed": self.seed}
 
     def analyze(self, cache, point: SweepPoint) -> TpuWorkloadAnalysis:
-        key = ("tpu", point.workload, self.batch, self.seq_len)
+        key = ("tpu", point.workload, self.batch, self.seq_len, self.seed)
         return cache.artifact(
             1, key, lambda: self._analyze(point.workload, cache.device),
             store_spec=self._layer1_spec(point.workload))
 
     def _analyze(self, workload: str, device) -> TpuWorkloadAnalysis:
-        from repro_torch.configs.registry import reduced_config
-        return analyze_train_step(reduced_config(workload), self.batch,
-                                  self.seq_len, device)
+        return analyze_train_step(model_config(workload, self.configs),
+                                  self.batch, self.seq_len, device,
+                                  self.seed, self.observe)
 
     # ------------------------------------------------------------ layer 2
     def _option(self, point: SweepPoint) -> TpuOption:
@@ -513,20 +548,22 @@ class TpuBackend(AnalysisBackend):
 _ARCH_FINGERPRINTS: Dict[str, str] = {}
 
 
-def arch_fingerprint(workload: str) -> str:
-    """Content hash of a TPU workload: the arch id + its *reduced config*
-    (every field that shapes the traced step).  Editing a config — layer
-    count, widths, MoE/SSM structure — invalidates the persisted analysis;
-    unknown archs degrade to a name-only fingerprint."""
-    cached = _ARCH_FINGERPRINTS.get(workload)
+def arch_fingerprint(workload: str, configs: Sequence = ()) -> str:
+    """Content hash of a TPU workload: the arch id + the config it records
+    (:func:`model_config`: every field that shapes the traced step).
+    Editing a config — layer count, widths, MoE/SSM structure —
+    invalidates the persisted analysis; unknown archs degrade to a
+    name-only fingerprint."""
+    given = [c for c in configs if c.arch_id == workload]
+    cached = None if given else _ARCH_FINGERPRINTS.get(workload)
     if cached is not None:
         return cached
     spec = ""
     try:
-        from repro_torch.configs.registry import reduced_config
-        spec = repr(reduced_config(workload))
+        spec = repr(model_config(workload, given))
     except Exception:  # noqa: BLE001 — unknown arch / unimportable configs
         spec = ""
     digest = hashlib.sha256(f"{workload}\n{spec}".encode()).hexdigest()[:16]
-    _ARCH_FINGERPRINTS[workload] = digest
+    if not given:
+        _ARCH_FINGERPRINTS[workload] = digest
     return digest

@@ -90,13 +90,15 @@ def _acc_dtype(x) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def _flash_fwd(causal, block, softcap, q, k, v, window, q_offset, kv_len):
+def _flash_fwd(causal, block, softcap, q, k, v, window, q_offset, kv_len,
+               scale=None):
     """The forward of the reference's ``_flash_fwd_impl``: its
-    ``lax.scan`` over KV blocks as a loop.  Returns (out, lse)."""
+    ``lax.scan`` over KV blocks as a loop.  Returns (out, lse).  The
+    scores are scaled by ``scale``, 1/sqrt(dh) where it is ``None``."""
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     nblk = -(-Skv // block)
     pad = nblk * block - Skv
     if pad:
@@ -138,7 +140,7 @@ def _flash_fwd(causal, block, softcap, q, k, v, window, q_offset, kv_len):
 
 
 def _flash_bwd(causal, block, q, k, v, out, lse, dout, window, q_offset,
-               kv_len):
+               kv_len, scale=None):
     """The reference's ``_flash_bwd``, FA2 style: each block's ``p``
     recomputed from the saved LSE.  Like the reference it recomputes the
     scores without the softcap's ``tanh``.  Returns (dq, dk, dv) in the
@@ -146,7 +148,7 @@ def _flash_bwd(causal, block, q, k, v, out, lse, dout, window, q_offset,
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     nblk = -(-Skv // block)
     pad = nblk * block - Skv
     if pad:
@@ -194,30 +196,32 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block, softcap, window, q_offset,
-                kv_len):
+                kv_len, scale=None):
         out, lse = _flash_fwd(causal, block, softcap, q, k, v, window,
-                              q_offset, kv_len)
+                              q_offset, kv_len, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, block, window, q_offset, kv_len)
+        ctx.args = (causal, block, window, q_offset, kv_len, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, block, window, q_offset, kv_len = ctx.args
+        causal, block, window, q_offset, kv_len, scale = ctx.args
         dq, dk, dv = _flash_bwd(causal, block, q, k, v, out, lse, dout,
-                                window, q_offset, kv_len)
-        return dq, dk, dv, None, None, None, None, None, None
+                                window, q_offset, kv_len, scale)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_jnp(q, k, v, *, causal: bool, window=0, q_offset=0,
-                        kv_len=None, block: int = 1024, softcap: float = 0.0):
+                        kv_len=None, block: int = 1024, softcap: float = 0.0,
+                        scale=None):
     """Online-softmax attention over KV blocks (the reference's name).
 
     q: (B, Sq, H, dh); k, v: (B, Skv, Hkv, dh). ``window``: if > 0, only
     keys with q_pos - k_pos < window attend (plus the causal constraint).
     ``kv_len``: number of valid kv positions (for padded caches). Returns
-    (B, Sq, H, dh).
+    (B, Sq, H, dh).  ``scale`` multiplies the scores (1/sqrt(dh) where
+    ``None``).
     """
     Skv = k.shape[1]
     block = min(block, Skv)
@@ -227,7 +231,7 @@ def flash_attention_jnp(q, k, v, *, causal: bool, window=0, q_offset=0,
         kv_len = kv_len.float()
     return per_shard(lambda q, k, v: _Flash.apply(
         q, k, v, causal, block, float(softcap), window, q_offset,
-        Skv if kv_len is None else kv_len), q, k, v)
+        Skv if kv_len is None else kv_len, scale), q, k, v)
 
 
 def per_shard(fn, q, k, v):
@@ -251,7 +255,7 @@ def per_shard(fn, q, k, v):
 
 
 def flash_attention_banded(q, k, v, *, window: int, block: int = 1024,
-                           softcap: float = 0.0):
+                           softcap: float = 0.0, scale=None):
     """Sliding-window attention with KV *block-skipping*: each q block
     attends only to its own KV band (ceil(window/blk)+1 blocks).  Requires
     a static integer window (causal)."""
@@ -264,7 +268,7 @@ def flash_attention_banded(q, k, v, *, window: int, block: int = 1024,
     nband = min(wblk + 1, nq)
     if nband >= nq:                                 # band covers everything
         return flash_attention_jnp(q, k, v, causal=True, window=window,
-                                   block=blk, softcap=softcap)
+                                   block=blk, softcap=softcap, scale=scale)
     outs = []
     for i in range(nq):
         start = max(i - (nband - 1), 0) * blk
@@ -273,20 +277,22 @@ def flash_attention_banded(q, k, v, *, window: int, block: int = 1024,
         outs.append(flash_attention_jnp(
             q[:, i * blk:(i + 1) * blk], k[:, start:start + nband * blk],
             v[:, start:start + nband * blk], causal=True, window=window,
-            q_offset=i * blk - start, block=blk, softcap=softcap))
+            q_offset=i * blk - start, block=blk, softcap=softcap,
+            scale=scale))
     return torch.cat(outs, dim=1)
 
 
 def flash_dispatch(q, k, v, *, causal: bool, window=0, block: int = 1024,
-                   softcap: float = 0.0, kv_len=None):
+                   softcap: float = 0.0, kv_len=None, scale=None):
     """The banded path when the window is a static int, else the masked
     full path (tensor windows, cross-attn, ragged kv)."""
     if (isinstance(window, int) and window > 0 and causal
             and kv_len is None and q.shape[1] == k.shape[1]):
         return flash_attention_banded(q, k, v, window=window, block=block,
-                                      softcap=softcap)
+                                      softcap=softcap, scale=scale)
     return flash_attention_jnp(q, k, v, causal=causal, window=window,
-                               kv_len=kv_len, block=block, softcap=softcap)
+                               kv_len=kv_len, block=block, softcap=softcap,
+                               scale=scale)
 
 
 # --------------------------------------------------------------- decode

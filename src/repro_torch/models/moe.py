@@ -9,14 +9,26 @@ Both keep the reference's order exactly: top-k takes the lower expert on a
 tie (a stable descending sort, as ``jax.lax.top_k``), and the gather
 dispatch sorts by expert with a stable sort (as ``jnp.argsort``), so the
 same tokens are dropped at capacity.
+
+:func:`granite_moe` is Granite-4.0-H's layer, which the reference package
+lacks: top-k over the router's logits, then a softmax over those k; a
+dropless dispatch (each held expert gets every token routed to it, its
+rows grouped by the per-expert counts, read back once); an expert share
+(the router scores every expert, the layer computes its held experts'
+part); and the shared expert.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Dict, Iterator, Optional
+
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import batch_full, shard
-from repro_torch.models.layers import dense, einsum, silu, swiglu_layout
+from repro_torch.models.layers import (dense, einsum, silu, swiglu,
+                                       swiglu_layout)
 
 
 def moe_layout(cfg: ModelConfig):
@@ -59,13 +71,17 @@ def _router(params, cfg: ModelConfig, x):
     gate_vals, idx = top_k(probs, e.top_k)                  # (G,S,k)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)
-    # Switch-style load-balancing loss
+    return gate_vals, idx, _balance_loss(probs, idx, e.n_experts)
+
+
+def _balance_loss(probs, idx, n_experts: int):
+    """Switch-style load-balancing loss: ``n_experts`` times the dot of
+    the mean router probability and the share of slots per expert."""
     me = probs.mean(dim=(0, 1))                             # (E,)
     flat = idx.reshape(-1)                                  # .at[idx].add(1)
-    ce = torch.zeros(e.n_experts, device=idx.device).scatter_add(
+    ce = torch.zeros(n_experts, device=idx.device).scatter_add(
         0, flat, torch.ones_like(flat, dtype=torch.float32)) / idx.numel()
-    aux = e.n_experts * torch.sum(me * ce)
-    return gate_vals, idx, aux
+    return n_experts * torch.sum(me * ce)
 
 
 def _expert_ffn(params, h):
@@ -146,3 +162,89 @@ def moe_ffn(params, cfg: ModelConfig, x):
         y = y + einsum("bsf,fd->bsd", silu(g.float()).to(x.dtype) * u,
                        sp["w_down"])
     return y, aux
+
+
+# ------------------------------------------------- Granite-4.0-H's layer
+def granite_moe_layout(cfg):
+    """Router over every expert (f32), the held experts' SwiGLU weights
+    (``cfg`` a ``HybridMoEConfig``) and the shared expert."""
+    d, e, dt = cfg.d_model, cfg.moe, cfg.param_dtype
+    n = len(cfg.held)
+    return {
+        "router": dense((d, e.n_experts), "float32"),
+        "w_gate": dense((n, d, e.expert_d_ff), dt, fan_in=d),
+        "w_up": dense((n, d, e.expert_d_ff), dt, fan_in=d),
+        "w_down": dense((n, e.expert_d_ff, d), dt, fan_in=e.expert_d_ff),
+        "shared": swiglu_layout(d, cfg.shared_d_ff, dt),
+    }
+
+
+_ROUTES: Optional[Dict[int, torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def capture_routing() -> Iterator[Dict[int, torch.Tensor]]:
+    """While open, every :func:`granite_moe` call given a ``layer`` keeps
+    its first choice of experts (a recomputation keeps none), as
+    ``{layer: (G, S, k) expert ids}``, in the dict it yields."""
+    global _ROUTES
+    _ROUTES = routes = {}
+    try:
+        yield routes
+    finally:
+        _ROUTES = None
+
+
+def dropless_experts(params, cfg, x, idx, gates):
+    """The held experts' part of the layer, dropping no token.
+
+    ``idx``/``gates``: (T, k) expert ids over the whole router and their
+    weights.  The slots of held experts are sorted by expert (stable), each
+    expert's rows are one contiguous group sized by its count (one
+    readback) and its products run over exactly those rows; the weighted
+    outputs are summed per token in f32.  Returns (y, counts), ``counts``
+    the rows each held expert got."""
+    T, d = x.shape
+    held = cfg.held
+    n, k = len(held), idx.shape[1]
+    local = torch.full((cfg.moe.n_experts,), n, dtype=torch.int64,
+                       device=x.device)
+    local[list(held)] = torch.arange(n, device=x.device)
+    slot = local[idx.reshape(-1)]                       # n: not held here
+    counts = torch.bincount(slot, minlength=n + 1).tolist()[:n]
+    order = torch.sort(slot, stable=True).indices[:sum(counts)]
+    tok = torch.div(order, k, rounding_mode="floor")
+    rows = x[tok]
+    outs = []
+    for j, h in enumerate(rows.split(counts)):
+        g = einsum("td,df->tf", h, params["w_gate"][j])
+        u = einsum("td,df->tf", h, params["w_up"][j])
+        a = silu(g.float()).to(h.dtype) * u
+        outs.append(einsum("tf,fd->td", a, params["w_down"][j]))
+    w = gates.reshape(-1)[order]
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device).index_add(
+        0, tok, torch.cat(outs).float() * w[:, None])
+    return y.to(x.dtype), counts
+
+
+def granite_moe(params, cfg, x, layer: Optional[int] = None):
+    """x: (B, S, d) -> (y, aux): top-k over the router's f32 logits, a
+    softmax over those k, the held experts' dropless part and the shared
+    expert; ``aux`` the Switch-style loss over the whole router.  Span
+    ``model.moe``: ``routed`` (rows sent to held experts) and
+    ``max_expert`` (the most one held expert got)."""
+    B, S, d = x.shape
+    k = cfg.moe.top_k
+    with obs.span("model.moe", cat="model", layer=layer) as sp:
+        logits = einsum("bsd,de->bse", x.float(), params["router"])
+        top, idx = top_k(logits, k)
+        gates = torch.softmax(top, dim=-1)
+        aux = _balance_loss(torch.softmax(logits, dim=-1), idx,
+                            cfg.moe.n_experts)
+        if _ROUTES is not None and layer is not None:
+            _ROUTES.setdefault(layer, idx.detach())
+        y, counts = dropless_experts(params, cfg, x.reshape(B * S, d),
+                                     idx.reshape(B * S, k),
+                                     gates.reshape(B * S, k))
+        sp.set(routed=sum(counts), max_expert=max(counts, default=0))
+        return y.reshape(B, S, d) + swiglu(params["shared"], x), aux

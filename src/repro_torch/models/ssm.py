@@ -369,3 +369,66 @@ def mamba_block(params, cfg: ModelConfig, x, state=None, decode: bool = False):
     y = y + params["D"][:, None] * xh.float()
     y = y.reshape(B, S, di).to(x.dtype) * silu(z.float()).to(x.dtype)
     return y, {"ssm": new_ssm, "conv": conv_state}
+
+
+# ======================================================================
+# Mamba-2 as published (Granite-4.0-H's mixer): one input projection to
+# [z, x|B|C, dt], a depthwise causal conv with bias over x|B|C, the SSD
+# (``ssd_sequence``, shared with hymba), D x, a gated RMSNorm, out_proj.
+# ======================================================================
+def mamba2_layout(cfg: ModelConfig):
+    """The published mixer's parameters (``cfg`` a ``HybridMoEConfig``).
+    The gated norm's weight is stored as its offset from one, as every
+    norm of the port is."""
+    d, s, dt = cfg.d_model, cfg.ssm, cfg.param_dtype
+    H, di, cc = s.n_heads, cfg.ssm_inner, cfg.conv_channels
+    return {
+        "in_proj": dense((d, di + cc + H), dt),            # z, x|B|C, dt
+        "conv_w": dense((s.conv_dim, cc), dt, fan_in=s.conv_dim),
+        "conv_b": dense((cc,), dt, fan_in=s.conv_dim),
+        "dt_bias": const(np.log(np.expm1(np.linspace(1e-3, 0.1, H))),
+                         "float32"),
+        "A_log": const(np.log(np.arange(1.0, H + 1.0)), "float32"),
+        "D": const(np.ones(H), "float32"),
+        "norm": const(np.zeros(di), dt),
+        "out_proj": dense((di, d), dt),
+    }
+
+
+def _conv_with_bias(w, b, xbc):
+    """Depthwise causal conv of width ``len(w)`` with bias over (B,S,C),
+    then SiLU; the sequence starts from zeros."""
+    K, S = w.shape[0], xbc.shape[1]
+    pad = batch_full(xbc, (xbc.shape[0], K - 1, xbc.shape[2]), 0.0,
+                     xbc.dtype)
+    xp = torch.cat([pad, xbc], dim=1)
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i]
+    return silu((y + b).float()).to(xbc.dtype)
+
+
+def mamba2_mixer(params, cfg: ModelConfig, x):
+    """(B,S,d) -> (B,S,d): the published Mamba-2 mixer over a sequence
+    that starts from a zero state (one group of B and C)."""
+    if cfg.ssm_groups != 1:
+        raise NotImplementedError("Mamba-2 with more than one group of B, C")
+    B, S, _ = x.shape
+    s = cfg.ssm
+    H, dh, N = s.n_heads, s.head_dim, s.d_state
+    di, cc = cfg.ssm_inner, cfg.conv_channels
+    u = einsum("bsd,de->bse", x, params["in_proj"])
+    z, xbc, dt_raw = u[..., :di], u[..., di:di + cc], u[..., di + cc:]
+    xbc = _conv_with_bias(params["conv_w"], params["conv_b"], xbc)
+    xc, B_t, C_t = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+    dt = softplus(dt_raw.float() + params["dt_bias"])   # (B,S,H)
+    la = -torch.exp(params["A_log"]) * dt               # log decay <= 0
+    xs = xc.reshape(B, S, H, dh)
+    xh = xs * dt[..., None].to(xc.dtype)
+    state = batch_full(x, (B, H, dh, N), 0.0, torch.float32)
+    y, _ = ssd_sequence(xh, B_t, C_t, la, state, s.chunk)
+    y = (y + params["D"][:, None] * xs.float()).reshape(B, S, di)
+    g = y * silu(z.float())                             # gated RMSNorm
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + cfg.norm_eps)
+    g = g.to(x.dtype) * (1.0 + params["norm"]).to(x.dtype)
+    return einsum("bse,ed->bsd", g, params["out_proj"])

@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (batch_full, is_dtensor,
                                        reduce_partial, shard, unshard_dim)
@@ -71,8 +72,22 @@ def _xlstm_pair_layout(cfg: ModelConfig):
     }
 
 
+def _granite_layer_layout(cfg: ModelConfig, kind: str):
+    """One layer of a ``hybrid_moe`` model: its mixer (Mamba-2 or
+    attention) and its mixture of experts, each after its norm."""
+    return {
+        "norm": norm_layout(cfg),
+        "mixer": (ssm_mod.mamba2_layout(cfg) if kind == "mamba"
+                  else attn.attn_layout(cfg)),
+        "ffn_norm": norm_layout(cfg),
+        "ffn": moe_mod.granite_moe_layout(cfg),
+    }
+
+
 def param_layout(cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference's ``init_params`` tree as :class:`Leaf` entries."""
+    """The reference's ``init_params`` tree as :class:`Leaf` entries.  A
+    ``hybrid_moe`` model's layers differ by kind, so they are not stacked:
+    ``layers`` maps each layer's zero-padded index to its own tree."""
     dt = cfg.param_dtype
     p: Dict[str, Any] = {
         "embed": embed((cfg.padded_vocab, cfg.d_model), dt),
@@ -80,7 +95,10 @@ def param_layout(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense((cfg.d_model, cfg.padded_vocab), dt)
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid_moe":
+        p["layers"] = {f"{i:02d}": _granite_layer_layout(cfg, kind)
+                       for i, kind in enumerate(cfg.pattern)}
+    elif cfg.family == "ssm":
         p["layers"] = stacked(_xlstm_pair_layout(cfg), cfg.n_layers // 2)
     elif cfg.family == "encdec":
         p["enc_layers"] = stacked(_decoder_layer_layout(cfg), cfg.n_enc_layers)
@@ -272,6 +290,10 @@ def forward_full(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     """
     tokens = batch["tokens"]
     x = _embed(params, cfg, tokens)
+    if cfg.family == "hybrid_moe":
+        if collect_cache:
+            raise NotImplementedError("no prefill cache for hybrid_moe")
+        return _granite_forward(params, cfg, x, remat)
     if cfg.family == "vlm" and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -390,6 +412,42 @@ def forward_full(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             cache["ssm"] = torch.stack([c["ssm"] for c in kvs])
             cache["conv"] = torch.stack([c["conv"] for c in kvs])
     return _unembed(params, cfg, x), aux_total, cache
+
+
+def _granite_layer(h, aux, lp, cfg: ModelConfig, kind: str, layer: int):
+    """One layer of a ``hybrid_moe`` model: the mixer of its kind, then
+    the mixture of experts, each branch scaled by ``residual_multiplier``
+    before its residual add.  Spans ``model.mamba`` / ``model.attn`` (and
+    ``model.moe``, in :func:`moe.granite_moe`)."""
+    hn = apply_norm(cfg, lp["norm"], h)
+    if kind == "mamba":
+        with obs.span("model.mamba", cat="model", layer=layer):
+            m = ssm_mod.mamba2_mixer(lp["mixer"], cfg, hn)
+    else:
+        with obs.span("model.attn", cat="model", layer=layer):
+            q, k, v = attn.qkv_proj(lp["mixer"], cfg, hn)      # no rope
+            o = attn.flash_dispatch(q, k, v, causal=True,
+                                    scale=cfg.attention_multiplier)
+            m = attn.out_proj(lp["mixer"], o)
+    h = h + m * cfg.residual_multiplier
+    f, a = moe_mod.granite_moe(lp["ffn"], cfg,
+                               apply_norm(cfg, lp["ffn_norm"], h),
+                               layer=layer)
+    return h + f * cfg.residual_multiplier, aux + a
+
+
+def _granite_forward(params, cfg: ModelConfig, x, remat: str):
+    """The ``hybrid_moe`` forward from the token rows: the embedding
+    scaled by ``embedding_multiplier``, the layers of ``cfg.pattern`` (one
+    remat body each), the logits divided by ``logits_scaling``.  Returns
+    (logits, aux, None)."""
+    x = x * cfg.embedding_multiplier
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(cfg.pattern):
+        body = _maybe_remat(functools.partial(
+            _granite_layer, cfg=cfg, kind=kind, layer=i), remat)
+        x, aux = body(x, aux, params["layers"][f"{i:02d}"])
+    return _unembed(params, cfg, x) / cfg.logits_scaling, aux, None
 
 
 def _encode(params, cfg: ModelConfig, enc_embeds, *, remat: str = "none"):

@@ -342,13 +342,15 @@ def test_backends_pickle_roundtrip():
 def test_backend_versions_and_warm_equal_reference():
     """``version`` stamps each backend's store entries: the protocol's is
     0, the CiM backend's the trace VM's, the TPU backend's its analysis
-    version -- the reference's numbers.  ``warm`` builds the layer-1
-    artifact of one point, as the reference's does."""
+    version -- the reference's numbers, but for the TPU backend's, one
+    ahead: the port's recorded step runs on weights drawn from a seed and
+    can record a configuration at its published widths.  ``warm`` builds
+    the layer-1 artifact of one point, as the reference's does."""
     from repro.dse.backends import AnalysisBackend as RefBase
     from repro_torch.dse.backends import AnalysisBackend
     assert AnalysisBackend.version.fget(None) == RefBase.version.fget(None) == 0
     assert port.CimBackend().version == ref.CimBackend().version == 2
-    assert port.TpuBackend().version == ref.TpuBackend().version
+    assert port.TpuBackend().version == ref.TpuBackend().version + 1 == 2
     from repro_torch.core.sampling import SamplingSpec
     assert port.CimBackend(sampling=SamplingSpec(
         mode="stratified")).version == 2

@@ -340,7 +340,10 @@ def test_lowering_edit_flags_the_trace_vm_layer(tmp_path):
 
 def test_layers_mirror_reference():
     """Same layers, constants and symbol filters; the port's modules are
-    the reference's under ``src/repro_torch/``, plus the lowering."""
+    the reference's under ``src/repro_torch/``, plus the lowering; the
+    same versions but the accelerator-mode analysis's, one ahead (the
+    port's recorded step runs on weights drawn from a seed and can record
+    a configuration at its published widths)."""
     assert [layer.name for layer in port_fp.LAYERS] == \
         [layer.name for layer in ref_fp.LAYERS]
     for ref, port in zip(ref_fp.LAYERS, port_fp.LAYERS):
@@ -351,8 +354,9 @@ def test_layers_mirror_reference():
         assert port.modules == tuple(map(_to_port, ref.modules)) + extra
         assert port.symbols == {_to_port(k): v
                                 for k, v in ref.symbols.items()}
+        ahead = 1 if ref.name == "tpu-analysis" else 0
         assert (port_fp.read_version(port, ROOT)
-                == ref_fp.read_version(ref, ROOT))
+                == ref_fp.read_version(ref, ROOT) + ahead)
 
 
 def test_one_fingerprint_across_interpreters():
