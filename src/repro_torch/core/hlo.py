@@ -37,15 +37,16 @@ no HLO, so they serve text from elsewhere and the tests that hold them.
 """
 from __future__ import annotations
 
+import array
 import dataclasses
 import re
 import threading
-from typing import Any, Callable, Dict, List, Set, Tuple
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.weak import WeakIdKeyDictionary
 
 # ======================================================================
 # 1. collective parsing (post-SPMD HLO text)
@@ -241,56 +242,130 @@ class GraphRecorder(TorchDispatchMode):
     as a jaxpr's inputs are.  Arguments an op writes in place, and every
     tensor it returns, become new values.  Ops that touch no tensor (dtype
     promotion queries) are not recorded.  On DTensors, only one device's
-    local ops and collectives are (see the module docstring)."""
+    local ops and collectives are (see the module docstring).
+
+    Each op's tensors are found through a plan made once per overload
+    from its schema (:class:`_OpPlan`), in the order
+    ``tree_leaves((args, kwargs))`` gives them; an op with a value of a
+    type the plan does not know (:func:`_into`) is walked with
+    ``tree_leaves``, and :attr:`fallback_eqns` counts the eqns recorded
+    that way.  Eqns are stored as integers until :meth:`graph` builds the
+    :class:`Graph`."""
 
     def __init__(self):
         super().__init__()
-        self.eqns: List[Eqn] = []
         self.shapes: List[Tuple[int, ...]] = []
         self.itemsizes: List[int] = []
-        self._ids = WeakIdKeyDictionary()
-        self._ops: Dict[Any, Tuple[str, Tuple[Tuple[int, str], ...]]] = {}
+        #: eqns recorded by walking the arguments and result with pytree
+        self.fallback_eqns = 0
+        # id(tensor) -> a weak reference to it that carries its value id;
+        # the reference's callback drops the entry when the tensor dies,
+        # so a later tensor at the same address starts a new value
+        self._ids: Dict[int, _ValueRef] = {}
+        selfref = weakref.ref(self)
+
+        def forget(ref: _ValueRef) -> None:
+            rec = selfref()
+            if rec is not None and rec._ids.get(ref.key) is ref:
+                del rec._ids[ref.key]
+        self._forget = forget
+        self._plans: Dict[int, _OpPlan] = {}     # by id(func)
+        self._prims: List[str] = []               # by the plan's ``op``
+        self._atens: List[str] = []
+        # eqn i: op _eqn_ops[i], invars _vars[_ends[i-1]:_splits[i]],
+        # outvars _vars[_splits[i]:_ends[i]]
+        self._eqn_ops = array.array("q")
+        self._splits = array.array("q")
+        self._ends = array.array("q")
+        self._vars = array.array("q")
         self._lock = threading.Lock()
 
     def _new_value(self, t: torch.Tensor) -> int:
         vid = len(self.shapes)
         self.shapes.append(tuple(t.shape))
         self.itemsizes.append(t.element_size())
-        self._ids[t] = vid
+        key = id(t)
+        ref = self._ids.get(key)
+        if ref is None or ref() is not t:
+            ref = self._ids[key] = _ValueRef(t, self._forget)
+            ref.key = key
+        ref.vid = vid
         return vid
 
-    def _read(self, t: torch.Tensor) -> int:
-        vid = self._ids.get(t)
-        return self._new_value(t) if vid is None else vid
+    def _plan(self, func) -> _OpPlan:
+        with self._lock:
+            plan = self._plans.get(id(func))
+            if plan is None or plan.func is not func:
+                self._prims.append(primitive_of(func))
+                self._atens.append(str(func))
+                plan = self._plans[id(func)] = _OpPlan(
+                    func, len(self._atens) - 1)
+            return plan
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if any(t is not torch.Tensor for t in types):  # a tensor subclass
-            if any(issubclass(t, _dtensor_type()) for t in types):
-                return NotImplemented          # DTensor runs it locally
-            if any(issubclass(t, _fake_type()) for t in types):
-                return func(*args, **kwargs)   # global-shape propagation
+        for t in types:
+            if t is not torch.Tensor:                  # a tensor subclass
+                if any(issubclass(t, _dtensor_type()) for t in types):
+                    return NotImplemented      # DTensor runs it locally
+                if any(issubclass(t, _fake_type()) for t in types):
+                    return func(*args, **kwargs)   # global-shape propagation
+                break
         out = func(*args, **kwargs)
-        info = self._ops.get(func)
-        if info is None:
-            info = self._ops[func] = _op_info(func)
-        prim, writes = info
-        with self._lock:
-            ins = tuple(self._read(t) for t in tree_leaves((args, kwargs))
-                        if isinstance(t, torch.Tensor))
-            returned = [t for t in tree_leaves(out)
-                        if isinstance(t, torch.Tensor)]
-            written = [t for t in _written(writes, args, kwargs)
+        plan = self._plans.get(id(func))   # OpOverload hashes in Python
+        if plan is None or plan.func is not func:
+            plan = self._plan(func)
+        returned = written = None
+        ins = plan.inputs(args, kwargs)
+        if ins is not None:
+            returned = _tensors_in(out)
+        if returned is not None:
+            written = _written(plan.writes, args, kwargs, _tensors_in)
+        general = written is None
+        if general:                                # the walk with pytree
+            ins = _leaves((args, kwargs))
+            returned = _leaves(out)
+            written = _written(plan.writes, args, kwargs, _leaves)
+        if written:
+            written = [t for t in written
                        if not any(t is r for r in returned)]
-            outs = tuple(self._new_value(t) for t in returned + written)
-            if ins or outs:
-                self.eqns.append(Eqn(prim, str(func), ins, outs))
+        if not (ins or returned or written):
+            return out
+        with self._lock:
+            var, ids = self._vars, self._ids
+            for t in ins:
+                ref = ids.get(id(t))
+                var.append(ref.vid if ref is not None and ref() is t
+                           else self._new_value(t))
+            self._splits.append(len(var))
+            for t in returned:
+                var.append(self._new_value(t))
+            for t in written:
+                var.append(self._new_value(t))
+            self._ends.append(len(var))
+            self._eqn_ops.append(plan.op)
+            self.fallback_eqns += general
         return out
 
     def graph(self) -> Graph:
         with self._lock:
-            return Graph(list(self.eqns), list(self.shapes),
-                         list(self.itemsizes))
+            prims, atens = list(self._prims), list(self._atens)
+            ops, splits, ends = (self._eqn_ops.tolist(),
+                                 self._splits.tolist(), self._ends.tolist())
+            var = self._vars.tolist()
+            shapes, itemsizes = list(self.shapes), list(self.itemsizes)
+        starts = [0] + ends[:-1]
+        invars = map(tuple, map(var.__getitem__, map(slice, starts, splits)))
+        outvars = map(tuple, map(var.__getitem__, map(slice, splits, ends)))
+        eqns = list(map(Eqn, map(prims.__getitem__, ops),
+                        map(atens.__getitem__, ops), invars, outvars))
+        return Graph(eqns, shapes, itemsizes)
+
+
+class _ValueRef(weakref.ref):
+    """A weak reference to a recorded tensor, filed under ``key`` (the
+    tensor's ``id``), with the id of the value the tensor holds now."""
+    __slots__ = ("key", "vid")
 
 
 def _dtensor_type():
@@ -303,20 +378,106 @@ def _fake_type():
     return FakeTensor
 
 
-def _op_info(func) -> Tuple[str, Tuple[Tuple[int, str], ...]]:
-    """``func``'s primitive name and the (position, name) of each argument
-    its schema marks as written."""
-    writes = tuple((i, a.name) for i, a in enumerate(func._schema.arguments)
-                   if a.alias_info is not None and a.alias_info.is_write)
-    return primitive_of(func), writes
+#: schema types whose values hold no tensor (``ScalarType``, ``Layout`` and
+#: ``MemoryFormat`` are ``int`` in a schema)
+_PLAIN_TYPES = (torch._C.IntType, torch._C.FloatType, torch._C.BoolType,
+                torch._C.NumberType, torch._C.ComplexType,
+                torch._C.StringType, torch._C.DeviceObjType,
+                torch._C.SymIntType, torch._C.SymBoolType,
+                torch._C.NoneType, torch._C.StreamObjType,
+                torch._C._GeneratorType)
+#: types of a value that holds no tensor (pytree leaves; a number passed
+#: for a ``Tensor`` argument reaches the mode as a Python scalar)
+_PLAIN_VALUES = frozenset({
+    type(None), bool, int, float, complex, str, torch.dtype, torch.device,
+    torch.layout, torch.memory_format, torch.SymInt, torch.SymFloat,
+    torch.SymBool})
 
 
-def _written(writes, args, kwargs) -> List[torch.Tensor]:
+def _plain(tp) -> bool:
+    """Whether a value of schema type ``tp`` can hold no tensor: a plain
+    type, or an optional or a list of one."""
+    while isinstance(tp, (torch._C.OptionalType, torch._C.ListType)):
+        tp = tp.getElementType()
+    return isinstance(tp, _PLAIN_TYPES)
+
+
+class _OpPlan:
+    """Where one ATen overload's arguments can hold tensors, from its
+    schema.  ``slots``: the positions of the positional arguments of
+    another type than :func:`_plain` ones (``Tensor``, ``Tensor?[]``,
+    ``Any``), in order; ``plain``: the names of the plain ones;
+    ``writes``: the (position, name) of each argument the op writes;
+    ``op`` indexes the recorder's tables of ``prim`` and ``aten``."""
+    __slots__ = ("func", "op", "slots", "plain", "writes")
+
+    def __init__(self, func, op: int):
+        args = func._schema.arguments
+        self.func, self.op = func, op
+        self.plain = frozenset(a.name for a in args if _plain(a.type))
+        self.slots = tuple(i for i, a in enumerate(args)
+                           if not a.kwarg_only and a.name not in self.plain)
+        self.writes = tuple((i, a.name) for i, a in enumerate(args)
+                            if a.alias_info is not None
+                            and a.alias_info.is_write)
+
+    def inputs(self, args, kwargs) -> Optional[List[torch.Tensor]]:
+        """The tensors of ``(args, kwargs)`` in pytree order, or None where
+        a value is not one :func:`_into` knows."""
+        ts: List[torch.Tensor] = []
+        n = len(args)
+        for i in self.slots:
+            if i >= n:
+                break
+            v = args[i]
+            if isinstance(v, torch.Tensor):
+                ts.append(v)
+            elif not _into(v, ts):
+                return None
+        for name, v in kwargs.items():
+            if name not in self.plain and not _into(v, ts):
+                return None
+        return ts
+
+
+def _into(v, ts: List[torch.Tensor]) -> bool:
+    """Append the tensors of ``v`` to ``ts`` in pytree order, where ``v`` is
+    a tensor, a plain value, or a tuple or list of such values and lists;
+    False, with ``ts`` partly extended, for anything else."""
+    if isinstance(v, torch.Tensor):
+        ts.append(v)
+    elif type(v) is list or type(v) is tuple:
+        for x in v:
+            if not _into(x, ts):
+                return False
+    elif type(v) not in _PLAIN_VALUES:
+        return False
+    return True
+
+
+def _tensors_in(v) -> Optional[List[torch.Tensor]]:
+    """The tensors of a result or a written argument (see :func:`_into`),
+    or None."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    ts: List[torch.Tensor] = []
+    return ts if _into(v, ts) else None
+
+
+def _leaves(v) -> List[torch.Tensor]:
+    """The tensors ``tree_leaves`` finds in ``v``: the general path."""
+    return [t for t in tree_leaves(v) if isinstance(t, torch.Tensor)]
+
+
+def _written(writes, args, kwargs, tensors_of):
+    """The tensors of the arguments at ``writes`` (see :class:`_OpPlan`),
+    each found by ``tensors_of``; None if it returns None for one."""
     out: List[torch.Tensor] = []
     for i, name in writes:
-        val = args[i] if i < len(args) else kwargs.get(name)
-        out.extend(t for t in tree_leaves(val)
-                   if isinstance(t, torch.Tensor))
+        ts = tensors_of(args[i] if i < len(args) else kwargs.get(name))
+        if ts is None:
+            return None
+        out.extend(ts)
     return out
 
 

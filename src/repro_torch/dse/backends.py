@@ -355,11 +355,12 @@ def record_train_step(cfg, batch: int, seq_len: int, device, seed: int = 0,
     uniform over the vocabulary).  ``observe(new_state, metrics)``, if
     given, sees the step's outputs before they are freed; the state and
     the outputs are freed when this returns.  Span ``tpu.record``
-    (``n_eqns``, ``tokens``)."""
+    (``n_eqns``, ``fallback_eqns``: the recorder's eqns found by a pytree
+    walk, ``tokens``)."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.columnar import resolve_device
-    from repro_torch.core.hlo import record_graph
+    from repro_torch.core.hlo import GraphRecorder
     from repro_torch.models import inputs as minputs
     from repro_torch.train import steps as steps_mod
 
@@ -371,8 +372,11 @@ def record_train_step(cfg, batch: int, seq_len: int, device, seed: int = 0,
         data = minputs.make_train_batch(gen, cfg, batch=batch,
                                         seq_len=seq_len, device=dev)
         step = steps_mod.make_train_step(cfg, TrainConfig())
-        graph, (new_state, metrics) = record_graph(step, state, data)
-        sp.set(n_eqns=len(graph.eqns))
+        rec = GraphRecorder()
+        with rec:
+            new_state, metrics = step(state, data)
+        graph = rec.graph()
+        sp.set(n_eqns=len(graph.eqns), fallback_eqns=rec.fallback_eqns)
         if observe is not None:
             observe(new_state, metrics)
     return graph

@@ -179,8 +179,33 @@ def test_recorder_keeps_no_tensor_alive():
         fn(x)
     gc.collect()
     assert all(r() is None for r in refs)
-    assert list(rec._ids.values()) == [0]          # x alone is alive
+    live = [(key, ref.vid) for key, ref in rec._ids.items()]
+    assert live == [(id(x), 0)]                     # x alone is alive
+    assert rec._ids[id(x)]() is x
     assert len(rec.graph().eqns) == 9
+
+
+def test_recorder_gives_a_reused_id_a_new_value():
+    """A tensor at the address of a freed one that the graph has seen is a
+    new value: the freed tensor's entry left the identity map with it."""
+    rec = GraphRecorder()
+    a = torch.zeros(4)
+    with rec:
+        torch.neg(a)                               # a is value 0
+    key = id(a)
+    del a
+    assert key not in rec._ids
+    kept = []
+    for _ in range(1000):
+        b = torch.ones(4)
+        if id(b) == key:
+            break
+        kept.append(b)
+    assert id(b) == key
+    with rec:
+        torch.neg(b)
+    first, second = rec.graph().eqns
+    assert first.invars == (0,) and second.invars == (2,)
 
 
 @pytest.mark.parametrize("op", ["mm", "addmm", "bmm", "baddbmm"])
